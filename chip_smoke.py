@@ -1,0 +1,482 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from csrc/, then:
+  1. prints the card (nvidia-smi name, power limit), torch/CUDA versions
+     and the kernel build time;
+  2. holds each kernel against its plain torch twin on the card at 4096
+     channels x 2048 bins (setup B=4: capped nh=128 with K=2 seed sums,
+     full band nh=1025, int16+scale; moments B=32, phases in [-3, 3]
+     turns) and times both; the setup's error must also stay within 4x
+     of a cuBLAS float32 DFT-as-GEMM's, below a TF32-input GEMM's;
+  3. runs the batched (phi, DM) fit at 4096 x 2048, B=64, capped and full
+     band, on bench.py's data recipe generated on the card from a seeded
+     torch.Generator: every item converged, |phi - phi_inj| <= 5 sigma,
+     and the card's float32 kernel route agrees with the float64 twin
+     route on the CPU within 0.01 sigma on a subset; prints fits/s;
+  4. runs the pipeline a user runs (GetTOAs(..., device="cuda")) on two
+     int16 PSRFITS archives x 8 subints at 4096 x 2048 written here, with
+     a float32 noiseless template: TOA count and injected dDM within 3
+     sigma.
+Launch counts are reset before the pipeline (the main path) and read
+after it; every kernel must have launched there.  The line before last is
+a JSON summary of the kernels; the last is {"ok": true, "device": ...}.
+Exits non-zero without a card, or when any phase fails.
+"""
+
+import json
+import math
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(HERE, "build", "chip_smoke")
+NCHAN, NBIN, P, NOISE = 4096, 2048, 0.003, 0.1
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps=10, warm=2):
+    """Mean milliseconds per call by CUDA events over reps launches."""
+    import torch
+    for _ in range(warm):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bench_template(freqs):
+    """bench.py's two-component template (nchan, nbin), float32."""
+    import numpy as np
+    x = (np.arange(NBIN) + 0.5) / NBIN
+    prof = np.exp(-0.5 * ((x - 0.4) / 0.02) ** 2) + \
+        0.4 * np.exp(-0.5 * ((x - 0.47) / 0.01) ** 2)
+    return (prof[None, :] * (freqs[:, None] / 1500.0) ** -1.5).astype(
+        np.float32)
+
+
+def shifted_data(mft, shifts, gen, noise, dev):
+    """irfft(mft e^{-2 pi i k shift}) + N(0, noise) in f32 on the card;
+    mft (nchan, nh) complex128, shifts (B, nchan) float64 [rot]."""
+    import torch
+    k = torch.arange(mft.shape[-1], dtype=torch.float64, device=dev)
+    out = []
+    for s in shifts.split(8):
+        ang = torch.remainder(s[..., None] * k, 1.0) * (2.0 * math.pi)
+        spec = mft * torch.polar(torch.ones_like(ang), -ang)
+        d = torch.fft.irfft(spec, n=NBIN, dim=-1)
+        d = d + noise * torch.randn(d.shape, generator=gen,
+                                    dtype=torch.float64, device=dev)
+        out.append(d.to(torch.float32))
+    return torch.cat(out)
+
+
+def tf32_round(t):
+    """Round float32 values to TF32's 10-bit mantissa (half away from 0)."""
+    import torch
+    i = t.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def gemm_cross_spectrum(xx, mr, mi, sc, tf32_inputs=False):
+    """(Gr, Gi) from a cuBLAS float32 DFT-as-GEMM: the accuracy class the
+    setup kernel must meet.  With tf32_inputs the data and trig matrix
+    are first rounded to TF32, the class the kernel must beat."""
+    import torch
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the float32 GEMM reference needs "
+                             "allow_tf32 = False")
+    nh = mr.shape[-1]
+    j = torch.arange(NBIN, dtype=torch.int64, device=xx.device)
+    k = torch.arange(nh, dtype=torch.int64, device=xx.device)
+    ang = torch.remainder(j[:, None] * k[None, :], NBIN).double() * (
+        2.0 * math.pi / NBIN)
+    E = torch.cat([torch.cos(ang), -torch.sin(ang)], dim=1).float()
+    xf = xx.float()
+    if tf32_inputs:
+        xf, E = tf32_round(xf), tf32_round(E)
+    X = xf @ E
+    Xr, Xi = X[..., :nh], X[..., nh:]
+    if sc is not None:
+        Xr, Xi = Xr * sc[..., None], Xi * sc[..., None]
+    Gr = Xr * mr + Xi * mi
+    Gi = Xi * mr - Xr * mi
+    Gr[..., 0] = 0.0
+    Gi[..., 0] = 0.0
+    return Gr, Gi
+
+
+def phase_kernels(dev, rng):
+    """Kernel vs plain twin on the card; returns per-kernel records."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu_torch.ops import moments as mom
+    from pulseportraiture_tpu_torch.ops import setup_dft as sdft
+    from pulseportraiture_tpu.io.native import quantize_i2
+
+    freqs = np.linspace(1100.0, 1900.0, NCHAN)
+    model = bench_template(freqs)
+    B = 4
+    gen = torch.Generator(device=dev).manual_seed(1)
+    mft = torch.fft.rfft(torch.as_tensor(model, dtype=torch.float64,
+                                         device=dev), dim=-1)
+    shifts = torch.as_tensor(rng.uniform(-0.05, 0.05, (B, 1)),
+                             device=dev).expand(B, NCHAN)
+    x = shifted_data(mft, shifts, gen, NOISE, dev)
+    mf = np.fft.rfft(model.astype(np.float64), axis=-1)
+    mr_c, mi_c, mh = sdft.band_cap_model_ft(mf.real, mf.imag, NBIN)
+    nh_c = sdft.cap_nharm(NBIN, mh)
+    if nh_c != 128:
+        raise AssertionError(f"bench template caps at nh={nh_c}, not 128")
+    full = (mf.real.astype(np.float32), mf.imag.astype(np.float32))
+    full[0][:, 0] = 0.0
+    full[1][:, 0] = 0.0
+    w = np.ones((B, NCHAN, 2), np.float32)
+    w[:, : NCHAN // 2, 1] = 0.0
+    wt = torch.from_numpy(w).to(dev)
+    raw, scl, _ = quantize_i2(x.cpu().numpy())
+    rec = {}
+    cases = (("capped", x, (mr_c[:, :nh_c], mi_c[:, :nh_c]), None),
+             ("full_band", x, full, None),
+             ("i16", torch.from_numpy(raw).to(dev), (mr_c[:, :nh_c],
+                                                     mi_c[:, :nh_c]),
+              torch.from_numpy(scl.astype(np.float32)).to(dev)))
+    for name, xx, (mr, mi), sc in cases:
+        mr_t = torch.from_numpy(np.ascontiguousarray(mr)).to(dev)
+        mi_t = torch.from_numpy(np.ascontiguousarray(mi)).to(dev)
+        got = sdft.fused_setup(xx, mr_t, mi_t, w=wt, scale=sc)
+        torch.cuda.synchronize()
+        ref = sdft.fused_setup_reference(
+            xx, mr_t.double(), mi_t.double(), w=wt.double(),
+            scale=None if sc is None else sc.double())
+        gmax = max(float(ref[0].abs().max()), float(ref[1].abs().max()))
+        smax = max(float(ref[3].abs().max()), float(ref[4].abs().max()))
+        errs = [float((g.double() - r).abs().max())
+                for g, r in zip(got, ref)]
+        bounds = [2e-5 * gmax, 2e-5 * gmax, 2e-5 * float(ref[2].abs().max()),
+                  2e-5 * smax, 2e-5 * smax]
+        log(f"setup[{name}] nh={mr.shape[-1]} max abs err Gr/Gi/sd/gsr/gsi "
+            f"{errs} bounds {bounds}")
+        if any(e > b for e, b in zip(errs, bounds)):
+            raise AssertionError(f"setup[{name}] disagrees with its twin")
+        # The DFT must be float32-class: within 4x of a cuBLAS float32
+        # GEMM's error on the same inputs, a bound a TF32 DFT must exceed.
+        e_cls = {}
+        for cls, tf in (("f32", False), ("tf32", True)):
+            g = gemm_cross_spectrum(xx, mr_t, mi_t, sc, tf32_inputs=tf)
+            e_cls[cls] = max(float((a.double() - r).abs().max())
+                             for a, r in zip(g, ref[:2]))
+            del g
+        log(f"setup[{name}] Gr/Gi max abs err: kernel {max(errs[:2])}, "
+            f"float32 GEMM {e_cls['f32']}, TF32-input GEMM {e_cls['tf32']}")
+        if max(errs[:2]) > 4 * e_cls["f32"]:
+            raise AssertionError(f"setup[{name}] is not float32-class")
+        if 4 * e_cls["f32"] >= e_cls["tf32"]:
+            raise AssertionError(f"setup[{name}]: the float32-class bound "
+                                 "does not exclude a TF32 DFT")
+        ms = cuda_ms(lambda: sdft.fused_setup(xx, mr_t, mi_t, w=wt,
+                                              scale=sc))
+        plain = cuda_ms(lambda: sdft.fused_setup_reference(
+            xx, mr_t, mi_t, w=wt, scale=sc))
+        log(f"setup[{name}] kernel {ms:.4f} ms, plain {plain:.4f} ms "
+            f"(B={B})")
+        rec[name] = dict(max_abs_err=max(errs[:2]), ms=ms, plain_ms=plain)
+
+    Bm = 32
+    for name, nh in (("capped", nh_c), ("full_band", NBIN // 2 + 1)):
+        f32 = dict(dtype=torch.float32, device=dev, generator=gen)
+        Gr = torch.randn((Bm, NCHAN, nh), **f32)
+        Gi = torch.randn((Bm, NCHAN, nh), **f32)
+        # phases of several turns: a plain float32 phi*k loses ~1e-4
+        # turn at k ~ 1000 there, the double-single phasor does not
+        phis = 6.0 * torch.rand((Bm, NCHAN), **f32) - 3.0
+        got = mom.phase_moments(phis, Gr, Gi)
+        torch.cuda.synchronize()
+        ref = mom.phase_moments_reference(phis.double(), Gr.double(),
+                                          Gi.double())
+        kk = torch.arange(nh, dtype=torch.float64, device=dev)
+        a = (Gr.abs() + Gi.abs()).double()
+        errs = []
+        for p_, (g, r) in enumerate(zip(got, ref)):
+            wsum = (a * kk ** p_).sum(-1) * (2 * math.pi) ** p_
+            e = (g.double() - r).abs()
+            errs.append(float(e.max()))
+            if bool((e > 2e-6 * (wsum + a.sum(-1))).any()):
+                raise AssertionError(f"moments[{name}] term {p_} disagrees")
+        ms = cuda_ms(lambda: mom.phase_moments(phis, Gr, Gi))
+        plain = cuda_ms(lambda: mom.phase_moments_reference(phis, Gr, Gi))
+        log(f"moments[{name}] nh={nh} max abs err C/Cp/Cpp {errs}; kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms (B={Bm})")
+        rec["moments_" + name] = dict(max_abs_err=errs[0], ms=ms,
+                                      plain_ms=plain,
+                                      max_abs_err_all=errs)
+        del Gr, Gi
+    return rec
+
+
+def phase_fit(dev):
+    """Batched fits at 4096 x 2048, B=64, capped and full band."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu.config import DCONST
+    from pulseportraiture_tpu_torch.fitters.portrait import (
+        fit_portrait_full_batch, template_spectrum)
+    from pulseportraiture_tpu_torch.ops import moments as mom
+    from pulseportraiture_tpu_torch.ops import setup_dft as sdft
+    from pulseportraiture_tpu_torch.ops.transform import phase_transform
+
+    B = 64
+    gen = torch.Generator(device=dev).manual_seed(0)
+    f64 = dict(dtype=torch.float64, device=dev)
+    freqs = torch.linspace(1100.0, 1900.0, NCHAN, **f64)
+    model = bench_template(freqs.cpu().numpy())
+    nu_fit = float(freqs.mean())
+    phis = torch.rand(B, generator=gen, **f64) * 0.02 - 0.01
+    dms = torch.rand(B, generator=gen, **f64) * 4e-4 - 2e-4
+    shifts = phis[:, None] + DCONST * dms[:, None] / P * (
+        freqs[None, :] ** -2 - nu_fit ** -2)
+    mft = torch.fft.rfft(torch.as_tensor(model, **f64), dim=-1)
+    data = shifted_data(mft, shifts, gen, NOISE, dev)
+    mf = np.fft.rfft(model.astype(np.float64), axis=-1)
+    mr_c, mi_c, mh = sdft.band_cap_model_ft(mf.real, mf.imag, NBIN)
+    nh_c = sdft.cap_nharm(NBIN, mh)
+    routes = {"capped": (mr_c[:, :nh_c], mi_c[:, :nh_c]),
+              "full_band": template_spectrum(model)}
+
+    def args(d, dt, n):
+        t = dict(dtype=dt, device=d)
+        return (torch.zeros((n, 5), **t), torch.full((n,), P, **t),
+                freqs.to(**t), torch.full((n, NCHAN), NOISE, **t))
+
+    out = {}
+    sd0, mm0 = sdft.fused_setup.launches, mom.phase_moments.launches
+    for name, mft_ri in routes.items():
+        def run():
+            return fit_portrait_full_batch(
+                data, mft_ri, *args(dev, torch.float32, B),
+                nu_fits=torch.full((B, 3), nu_fit, dtype=torch.float32,
+                                   device=dev), dtype=torch.float32)
+        res = run()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        sec = statistics.median(times)
+        rc = res.return_code.cpu()
+        if not bool((rc < 3).all()):
+            raise AssertionError(f"fit[{name}] items not converged: {rc}")
+        p = res.params.double()
+        nu_out = res.nu_DM.double()
+        phi_back = phase_transform(p[:, 0], p[:, 1], nu_out, nu_fit, P,
+                                   mod=True)
+        lever = DCONST / P * (nu_fit ** -2 - nu_out ** -2)
+        e = res.param_errs.double()
+        sig_phi = torch.sqrt(e[:, 0] ** 2 + (lever * e[:, 1]) ** 2)
+        zphi = ((phi_back - phis) / sig_phi).abs().max().item()
+        zdm = ((p[:, 1] - dms) / e[:, 1]).abs().max().item()
+        if zphi > 5 or zdm > 5:
+            raise AssertionError(f"fit[{name}] off the injection: "
+                                 f"{zphi:.2f}, {zdm:.2f} sigma")
+        # the same data through the float64 twin route on the CPU
+        nc = 8
+        cpu = torch.device("cpu")
+        ref = fit_portrait_full_batch(
+            data[:nc].cpu(), mft_ri, *args(cpu, torch.float64, nc),
+            nu_fits=torch.full((nc, 3), nu_fit, dtype=torch.float64),
+            dtype=torch.float64)
+        r_back = phase_transform(ref.params[:, 0], ref.params[:, 1],
+                                 ref.nu_DM, nu_fit, P, mod=True)
+        dphi = ((phi_back[:nc].cpu() - r_back) / sig_phi[:nc].cpu()).abs()
+        ddm = ((p[:nc, 1].cpu() - ref.params[:, 1]) / e[:nc, 1].cpu()).abs()
+        agree = max(float(dphi.max()), float(ddm.max()))
+        mean_niter = float(res.niter.double().mean())
+        log(f"fit[{name}] B={B} nh={mft_ri[0].shape[-1]}: "
+            f"{B / sec:.2f} fits/s ({sec * 1e3:.2f} ms/batch, median of 3), "
+            f"mean niter {mean_niter}, max |dphi|/sigma {zphi:.3f}, "
+            f"max |dDM|/sigma {zdm:.3f}, card route vs f64 twin route "
+            f"{agree:.2e} sigma, max|dphi| "
+            f"{float((phi_back - phis).abs().max()):.3e} rot")
+        if agree > 1e-2:
+            raise AssertionError(f"fit[{name}] kernel route vs f64 twin "
+                                 f"route: {agree:.3e} sigma > 0.01")
+        out[name] = dict(fits_per_s=B / sec, sec_per_batch=sec,
+                         mean_niter=mean_niter, twin_sigma=agree)
+    launches = (sdft.fused_setup.launches - sd0,
+                mom.phase_moments.launches - mm0)
+    log(f"batched-fit phase launches: fused_setup {launches[0]}, "
+        f"phase_moments {launches[1]}")
+    if min(launches) <= 0:
+        raise AssertionError("a kernel did not launch in the fit phase")
+    return out
+
+
+def write_archives(rng):
+    """Two int16 archives x 8 subints + a float32 noiseless template."""
+    import numpy as np
+
+    from pulseportraiture_tpu.config import DCONST
+    from pulseportraiture_tpu.io.mjd import MJD
+    from pulseportraiture_tpu.io.psrfits import Archive, write_psrfits
+
+    os.makedirs(WORK, exist_ok=True)
+    nsub, nu0, bw, DM = 8, 1500.0, 800.0, 30.0
+    cw = bw / NCHAN
+    freqs = np.linspace(nu0 - bw / 2 + cw / 2, nu0 + bw / 2 - cw / 2, NCHAN)
+    model = bench_template(freqs).astype(np.float64)
+    mft = np.fft.rfft(model, axis=-1)
+    k = np.arange(NBIN // 2 + 1)
+    inv2 = freqs ** -2.0 - nu0 ** -2.0
+
+    def arch(data, DM_, dDM_epoch):
+        n = data.shape[0]
+        return Archive(
+            data=data, freqs=np.broadcast_to(freqs, (n, NCHAN)).copy(),
+            weights=np.ones((n, NCHAN)), Ps=np.full(n, P),
+            epochs=[MJD(57000 + 30 * dDM_epoch).add_seconds(30.0 + 60 * i)
+                    for i in range(n)],
+            subtimes=np.full(n, 60.0), DM=DM_, dedispersed=False,
+            nu0=nu0, bw=bw, source="J0000+0000", telescope="GBT",
+            frontend="rx", backend="be")
+
+    tmpl = os.path.join(WORK, "template.fits")
+    write_psrfits(tmpl, arch(model[None, None], 0.0, 0), dtype="f4")
+    files, dDMs = [], [3e-4, -2e-4]
+    for ia, dDM in enumerate(dDMs):
+        data = np.empty((nsub, 1, NCHAN, NBIN))
+        for i in range(nsub):
+            phase = rng.uniform(-0.2, 0.2)
+            phis = -phase - DCONST * (DM + dDM) / P * inv2
+            theta = np.mod(phis[:, None] * k, 1.0) * (2.0 * np.pi)
+            data[i, 0] = np.fft.irfft(mft * np.exp(1j * theta), n=NBIN,
+                                      axis=-1)
+        data += rng.normal(0.0, NOISE, data.shape)
+        path = os.path.join(WORK, f"epoch{ia}.fits")
+        write_psrfits(path, arch(data, DM, ia + 1), dtype="i2")
+        files.append(path)
+    return files, dDMs, tmpl
+
+
+def phase_pipeline(rng):
+    """GetTOAs on the card; returns (launch counts, mharms)."""
+    import numpy as np
+
+    from pulseportraiture_tpu.io.tim import write_TOAs
+    from pulseportraiture_tpu_torch.ops import moments as mom
+    from pulseportraiture_tpu_torch.ops import setup_dft as sdft
+    from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
+
+    t0 = time.perf_counter()
+    files, dDMs, tmpl = write_archives(rng)
+    log(f"pipeline: wrote 2 x 8 x {NCHAN} x {NBIN} int16 archives in "
+        f"{time.perf_counter() - t0:.2f} s")
+    gt = GetTOAs(files, tmpl, device="cuda", quiet=True)
+    # the main path: every launch count from 0, read right after
+    sdft.fused_setup.launches = 0
+    mom.phase_moments.launches = 0
+    t0 = time.perf_counter()
+    gt.get_TOAs(quiet=True)
+    wall = time.perf_counter() - t0
+    launches = {"fused_setup": sdft.fused_setup.launches,
+                "phase_moments": mom.phase_moments.launches}
+    tim = os.path.join(WORK, "smoke.tim")
+    lines = write_TOAs(gt.TOA_list, outfile=tim, append=False)
+    log(f"pipeline: {len(lines)} TOAs in {wall:.2f} s "
+        f"(timing {json.dumps(gt.fit_timing)}); mharm {gt.mharms}; "
+        f"launches {launches}")
+    log("pipeline: " + lines[0])
+    if len(lines) != 16:
+        raise AssertionError(f"expected 16 TOAs, got {len(lines)}")
+    rec = np.asarray(gt.DeltaDM_means)
+    err = np.asarray(gt.DeltaDM_errs)
+    log(f"pipeline: DeltaDM {rec.tolist()} +- {err.tolist()}, injected "
+        f"{dDMs}")
+    if not np.all(np.abs(rec - dDMs) <= 3 * err):
+        raise AssertionError("injected dDM not recovered within 3 sigma")
+    if not gt.mharms or min(gt.mharms) <= 0:
+        raise AssertionError(f"the f32 template did not cap: {gt.mharms}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel did not launch on the main path: "
+                             f"{launches}")
+    return launches
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        log("chip_smoke: torch.cuda.is_available() is False")
+        return 2
+    sys.path.insert(0, HERE)
+    import numpy as np
+
+    from pulseportraiture_tpu_torch import _build
+
+    dev = torch.device("cuda")
+    log(card_line())
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+    _build.load_kernels()
+    log(f"kernel build: {_build.build_info['seconds']:.2f} s (cached: "
+        f"{_build.build_info['cached']})")
+    for line in _build.build_info["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            log("ptxas: " + line.strip())
+    rng = np.random.default_rng(0)
+    krec = phase_kernels(dev, rng)
+    fits = phase_fit(dev)
+    try:
+        launches = phase_pipeline(rng)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    summary = {"kernels": [
+        {"name": "fused_setup", "route": "cuda",
+         "source": "pulseportraiture_tpu_torch/csrc/setup.cu",
+         "replaces": "pulseportraiture_tpu/ops/ct_dft.py:430",
+         "also_replaces": "pulseportraiture_tpu/ops/ct_dft.py:804",
+         "launches": launches["fused_setup"],
+         "max_abs_err": krec["capped"]["max_abs_err"],
+         "ms": krec["capped"]["ms"], "plain_ms": krec["capped"]["plain_ms"],
+         "full_band": krec["full_band"], "i16": krec["i16"]},
+        {"name": "phase_moments", "route": "cuda",
+         "source": "pulseportraiture_tpu_torch/csrc/moments.cu",
+         "replaces": "pulseportraiture_tpu/ops/pallas_moments.py:323",
+         "launches": launches["phase_moments"],
+         "max_abs_err": krec["moments_capped"]["max_abs_err"],
+         "ms": krec["moments_capped"]["ms"],
+         "plain_ms": krec["moments_capped"]["plain_ms"],
+         "full_band": krec["moments_full_band"]}],
+        "fits": fits}
+    print(json.dumps(summary), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,23 @@
+"""pulseportraiture_tpu_torch: the wideband TOA path in PyTorch and CUDA.
+
+A port of `pulseportraiture_tpu` (JAX/XLA/Pallas) to PyTorch, with the
+device kernels written by hand in CUDA C++ for Hopper (`csrc/`).  The JAX
+package stays the reference: the port's CPU tests run both packages on the
+same inputs.  Layers follow the JAX package:
+
+  ops/       transforms, the fused setup (DFT + cross-spectrum) and the
+             phase-moments reduction, each kernel beside its plain twin
+  fitters/   sufficient statistics, the batched trust-region Newton loop,
+             the batched (phi, DM) portrait fit
+  models/    spline template evaluation (host numpy)
+  io/        archive loading (the PSRFITS codec is shared with the JAX
+             package, which imports no JAX at those modules)
+  pipelines/ GetTOAs: archives -> batched fits -> TOAs
+  cli/       pptoas
+
+Every entry point takes an explicit `device`; float32 is the working type
+on the card, float64 the parity type on the CPU.  This package imports
+`torch` and never `jax`.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,85 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+The sources compile with nvcc into one shared library with a plain C
+interface, loaded with ctypes: no PyTorch headers, so a build takes
+seconds.  The library lands in <checkout>/build/pp_kernels/, named by a
+hash of the sources and flags, at first use; a later process reuses it.
+Nothing is imported or built while a module is imported.
+
+Flags: sm_90a (Hopper), -O3, and no --use_fast_math: the moments kernel
+relies on precise sincosf and IEEE rounding (csrc/moments.cu).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+_SOURCES = ("setup.cu", "moments.cu")
+_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+BUILD_DIR = _PKG.parent / "build" / "pp_kernels"
+
+_lib = None
+build_info = {"seconds": 0.0, "cached": None, "log": ""}
+
+
+def _nvcc():
+    path = shutil.which("nvcc")
+    if path:
+        return path
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME or /usr/local/cuda): "
+                       "the CUDA kernels cannot be built")
+
+
+def _declare(lib):
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.pp_phase_moments.argtypes = [vp, vp, vp, vp, i64, i32, vp]
+    lib.pp_phase_moments.restype = i32
+    lib.pp_fused_setup.argtypes = [vp, i32, vp, i32, vp, vp, vp, vp, i32,
+                                   vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                                   i32, i32, vp]
+    lib.pp_fused_setup.restype = i32
+    lib.pp_error_string.argtypes = [i32]
+    lib.pp_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load_kernels():
+    """The loaded kernel library, building it first if needed."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    srcs = [_PKG / "csrc" / s for s in _SOURCES]
+    h = hashlib.sha256()
+    for s in srcs:
+        h.update(s.read_bytes())
+    h.update(" ".join(_FLAGS).encode())
+    out = BUILD_DIR / f"libpp_kernels_{h.hexdigest()[:16]}.so"
+    t0 = time.perf_counter()
+    if out.exists():
+        build_info["cached"] = True
+    else:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_info["log"] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n" +
+                               build_info["log"])
+        os.replace(tmp, out)
+        build_info["cached"] = False
+    _lib = _declare(ctypes.CDLL(str(out)))
+    build_info["seconds"] = time.perf_counter() - t0
+    return _lib

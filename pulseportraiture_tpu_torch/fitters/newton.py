@@ -1,0 +1,205 @@
+"""Batched trust-region Newton minimizer with exact Hessians.
+
+Port of pulseportraiture_tpu.fitters.newton.  The JAX package runs
+vmap(lax.while_loop): every item steps while any item is active, and an
+item whose loop condition is false keeps its state.  Here that is an
+explicit loop over a leading batch axis: fgh is evaluated for the whole
+batch each iteration, and finished items are frozen (x, f, g, H, aux, it,
+nfev and status stop changing) by masked selects.  The host syncs once
+per iteration, on "all done".
+
+The subproblem is solved exactly (Moré–Sorensen on the <=5x5 Hessian via
+batched torch.linalg.eigh).  Carried over unchanged: the f32 acceptance
+floor 8 eps |f|, the radius shrink on a non-finite trial, the speculative
+final step bounded by the last verified step length, the step_mask
+projection and the status codes.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+RCSTRINGS = {
+    0: "Converged (gradient norm below tolerance)",
+    1: "Converged (function decrease below ftol)",
+    2: "Converged (step size / trust radius below xtol)",
+    3: "Maximum number of iterations reached",
+}
+
+
+class NewtonResult(NamedTuple):
+    x: torch.Tensor
+    fun: torch.Tensor
+    grad: torch.Tensor
+    hess: torch.Tensor
+    niter: torch.Tensor
+    nfev: torch.Tensor
+    status: torch.Tensor  # 0 grad, 1 fconv, 2 xconv, 3 maxiter
+    success: torch.Tensor
+    aux: object = None    # fgh aux at x (has_aux=True only)
+
+
+def _mv(A, v):
+    return (A @ v[..., None])[..., 0]
+
+
+def _tr_solve(g, H, radius):
+    """Exact trust-region step: argmin g.p + 0.5 p H p, |p| <= radius.
+
+    Batched over leading axes.  Solved on a scale-normalized copy (H/s,
+    g/s with s = max|H|): same minimizer, and the secular iteration stays
+    conditioned for f32 objectives whose curvatures reach ~1e13.
+    """
+    one = torch.ones((), dtype=H.dtype, device=H.device)
+    s = torch.maximum(torch.amax(torch.abs(H), dim=(-2, -1)), one)
+    g = g / s[..., None]
+    H = H / s[..., None, None]
+    lam, V = torch.linalg.eigh(H)
+    gt = _mv(V.transpose(-1, -2), g)
+    lam_min = lam[..., 0]
+    eps = 10.0 * torch.finfo(g.dtype).eps
+    zero = torch.zeros_like(lam_min)
+
+    def p_of(mu):
+        return gt / (lam + mu[..., None])
+
+    def norm_of(mu):
+        return torch.sqrt(torch.sum(p_of(mu) ** 2, dim=-1) + eps * eps)
+
+    floor = torch.maximum(zero, -lam_min) + eps
+    interior_ok = (lam_min > 0.0) & (norm_of(zero) <= radius)
+    mu = floor + 1.0
+    for _ in range(25):
+        pn = norm_of(mu)
+        phi = 1.0 / pn - 1.0 / radius
+        dphi = torch.sum(gt ** 2 / (lam + mu[..., None]) ** 3,
+                         dim=-1) / pn ** 3
+        step = phi / torch.where(dphi > 0.0, dphi, torch.ones_like(dphi))
+        mu = torch.maximum(mu - step, floor)
+    p_boundary = -_mv(V, p_of(mu))
+    pb_norm = torch.sqrt(torch.sum(p_boundary ** 2, dim=-1) + eps * eps)
+    p_boundary = p_boundary * torch.clamp(radius / pb_norm,
+                                          max=1.0)[..., None]
+    p_interior = -_mv(V, p_of(zero))
+    p = torch.where(interior_ok[..., None], p_interior, p_boundary)
+    return p, ~interior_ok
+
+
+def _select(mask, a, b):
+    """Per-item select broadcasting a (B,) mask over trailing axes."""
+    m = mask.reshape(mask.shape + (1,) * (a.dim() - mask.dim()))
+    return torch.where(m, a, b)
+
+
+def _select_aux(mask, a, b):
+    if isinstance(a, dict):
+        return {k: _select_aux(mask, a[k], b[k]) for k in a}
+    return _select(mask, a, b)
+
+
+def trust_region_minimize(fgh: Callable, x0, max_iter: int = 100,
+                          gtol: float = 1e-10, xtol: float = 1e-12,
+                          ftol: float = 0.0, init_radius: float = 1.0,
+                          max_radius: float = 1e3, has_aux: bool = False,
+                          step_mask=None):
+    """Minimize f for every item of a batch via exact trust-region Newton.
+
+    x0: (B, n).  fgh(x) -> (f (B,), g (B, n), H (B, n, n)[, aux]) with
+    analytic derivatives; non-fitted parameters must already be masked
+    inside fgh (zero gradient row, identity Hessian row/col).  step_mask:
+    optional (n,) 0/1 projection that pins masked coordinates through the
+    subproblem solve regardless of eigenvector rounding.  has_aux: aux is
+    a (nested) dict of tensors with a leading batch axis, carried for the
+    accepted point.
+    """
+    out = fgh(x0)
+    f0, g0, H0 = out[:3]
+    aux = out[3] if has_aux else None
+    dtype, dev = f0.dtype, f0.device
+    B = x0.shape[0]
+    feps = torch.finfo(dtype).eps
+    g0norm = torch.sqrt(torch.sum(g0 ** 2, dim=-1))
+    gtol_rel = 100.0 * feps
+    mask = None if step_mask is None else torch.as_tensor(
+        step_mask, dtype=dtype, device=dev)
+
+    x, f, g, H = x0, f0, g0, H0
+    radius = torch.full((B,), float(init_radius), dtype=dtype, device=dev)
+    it = torch.zeros(B, dtype=torch.int64, device=dev)
+    nfev = torch.ones(B, dtype=torch.int64, device=dev)
+    status = torch.full((B,), 3, dtype=torch.int64, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    tiny = torch.full((), 1e-300, dtype=dtype, device=dev)  # 0 in f32
+
+    while True:
+        active = (~done) & (it < max_iter)
+        if not bool(active.any()):
+            break
+        p, hit = _tr_solve(g, H, radius)
+        if mask is not None:
+            p = p * mask
+        x_new = x + p
+        out = fgh(x_new)
+        f_new, g_new, H_new = out[:3]
+        pred = -(torch.sum(g * p, dim=-1) + 0.5 * torch.sum(p * _mv(H, p),
+                                                             dim=-1))
+        actual = f - f_new
+        rho = actual / torch.where(pred > 0.0, pred, tiny)
+        # below the floating-point resolution of f the ratio is rounding
+        # noise: accept and declare ftol-convergence
+        eps_f = 8.0 * feps * torch.abs(f)
+        tiny_pred = (pred <= eps_f) & (actual >= -4.0 * eps_f)
+        accept = (pred > 0.0) & ((rho > 0.15) | tiny_pred) & \
+            torch.isfinite(f_new)
+        pnorm = torch.sqrt(torch.sum(p ** 2, dim=-1))
+        # a non-finite trial must shrink the radius, or the same bad step
+        # is retried until max_iter
+        bad = ~torch.isfinite(rho) | ~torch.isfinite(f_new)
+        radius_n = torch.where(
+            bad | (rho < 0.25), 0.25 * pnorm,
+            torch.where((rho > 0.75) & hit,
+                        torch.clamp(2.0 * radius, max=max_radius), radius))
+        x_n = _select(accept, x_new, x)
+        f_n = torch.where(accept, f_new, f)
+        g_n = _select(accept, g_new, g)
+        H_n = _select(accept, H_new, H)
+        aux_n = _select_aux(accept, out[3], aux) if has_aux else None
+        gnorm = torch.sqrt(torch.sum(g_n ** 2, dim=-1))
+        gconv = (gnorm < gtol) | (gnorm < gtol_rel * g0norm)
+        xconv = accept & (pnorm < xtol)
+        # speculative final step on the accepted point: when the next
+        # subproblem's predicted decrease is below the resolution of f
+        # AND the step is no longer than the one just verified, take it
+        # now and stop without paying its fgh evaluation
+        p2, _ = _tr_solve(g_n, H_n, radius_n)
+        if mask is not None:
+            p2 = p2 * mask
+        pred2 = -(torch.sum(g_n * p2, dim=-1) +
+                  0.5 * torch.sum(p2 * _mv(H_n, p2), dim=-1))
+        below2 = (pred2 >= 0.0) & (pred2 <= 8.0 * feps * torch.abs(f_n)) & \
+            (torch.sqrt(torch.sum(p2 ** 2, dim=-1)) <= pnorm)
+        spec = accept & below2
+        x_n = _select(spec, x_n + p2, x_n)
+        fconv = (accept & (ftol > 0.0) & (actual < ftol * torch.clamp(
+            torch.abs(f), min=1.0))) | (accept & tiny_pred & (pred > 0.0)) \
+            | spec
+        stalled = (~accept) & (radius_n < xtol)
+        done_n = gconv | xconv | fconv | stalled
+        status_n = torch.where(gconv, 0, torch.where(
+            fconv, 1, torch.where(xconv | stalled, 2, status)))
+        # freeze the items whose loop had already ended (vmap semantics)
+        x = _select(active, x_n, x)
+        f = torch.where(active, f_n, f)
+        g = _select(active, g_n, g)
+        H = _select(active, H_n, H)
+        if has_aux:
+            aux = _select_aux(active, aux_n, aux)
+        radius = torch.where(active, radius_n, radius)
+        status = torch.where(active, status_n, status)
+        done = torch.where(active, done_n, done)
+        it = it + active.to(it.dtype)
+        nfev = nfev + active.to(nfev.dtype)
+    return NewtonResult(x=x, fun=f, grad=g, hess=H, niter=it, nfev=nfev,
+                        status=status, success=status < 3, aux=aux)

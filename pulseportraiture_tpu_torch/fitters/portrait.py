@@ -1,0 +1,295 @@
+"""Batched wideband (phi, DM) portrait fit.
+
+Port of pulseportraiture_tpu.fitters.portrait.fit_portrait_full_batch
+with one route: the shared template spectrum (capped or full band), the
+fused setup (ops.setup_dft: DFT, cross-spectrum, data power and the two
+stacked seed sums in one pass), the joint brute (phi, DM) seed, the
+batched trust-region Newton loop over the phase moments, then
+re-referencing to the zero-covariance frequency and the Woodbury
+covariance.  Reference: pptoaslib.py:928-1096.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from pulseportraiture_tpu.config import DCONST, F0_FACT
+from pulseportraiture_tpu_torch.fitters import newton, nu_zeros, stats
+from pulseportraiture_tpu_torch.ops.setup_dft import fused_setup
+from pulseportraiture_tpu_torch.ops.transform import (_inv2, _inv4,
+                                                      mod_pm_half,
+                                                      phase_shifts)
+
+
+class PortraitFitResult(NamedTuple):
+    """Result of a batched 5-parameter fit (leading batch axis)."""
+
+    params: torch.Tensor        # (B, 5) [phi_out, DM, GM, tau_out, alpha]
+    param_errs: torch.Tensor    # (B, 5)
+    scales: torch.Tensor        # (B, nchan)
+    scale_errs: torch.Tensor    # (B, nchan)
+    nu_DM: torch.Tensor
+    nu_GM: torch.Tensor
+    nu_tau: torch.Tensor
+    covariance_matrix: torch.Tensor  # (B, 5, 5) masked to fitted params
+    chi2: torch.Tensor
+    red_chi2: torch.Tensor
+    snr: torch.Tensor
+    channel_snrs: torch.Tensor
+    niter: torch.Tensor
+    nfeval: torch.Tensor
+    return_code: torch.Tensor
+    channel_red_chi2: torch.Tensor = None  # (B, nchan)
+
+    @property
+    def phi(self):
+        return self.params[..., 0]
+
+    @property
+    def DM(self):
+        return self.params[..., 1]
+
+    @property
+    def GM(self):
+        return self.params[..., 2]
+
+    @property
+    def phi_err(self):
+        return self.param_errs[..., 0]
+
+    @property
+    def DM_err(self):
+        return self.param_errs[..., 1]
+
+    @property
+    def GM_err(self):
+        return self.param_errs[..., 2]
+
+
+def _brute_phase_seed(gsr, gsi, Ns=512):
+    """Per-item brute phase from a band-summed cross-spectrum (B, NH):
+    argmax over an Ns-point circular grid of sum_k Re(G_k e^{2 pi i phi
+    k}) (one (B, NH) @ (NH, Ns) product), refined by a 3-point parabola.
+    """
+    dt, dev = gsr.dtype, gsr.device
+    grid = torch.arange(Ns, dtype=dt, device=dev) / Ns - 0.5
+    k = torch.arange(gsr.shape[-1], dtype=dt, device=dev)
+    Ct, St = stats._phase_trig(grid, k)                  # (Ns, NH)
+    vals = gsr @ Ct.T - gsi @ St.T
+    j = torch.argmax(vals, dim=-1)
+    rows = torch.arange(vals.shape[0], device=dev)
+    vm = vals[rows, torch.remainder(j - 1, Ns)]
+    v0 = vals[rows, j]
+    vp = vals[rows, torch.remainder(j + 1, Ns)]
+    denom = vm - 2.0 * v0 + vp
+    delta = torch.where(denom < 0.0, 0.5 * (vm - vp) / denom,
+                        torch.zeros_like(denom))
+    return grid[j] + torch.clamp(delta, -0.5, 0.5) / Ns
+
+
+def _seed_phi_dm(gsr, gsi, wcurv, beta, kdm, Ns=512, max_dphi=0.1):
+    """Joint brute (phi, DM) seed from the stacked [full band, upper
+    half] seed sums gsr/gsi (B, 2, NH); the lower half is their
+    difference.  The wrapped half-band phase difference over
+    kdm*(beta_hi - beta_lo) (curvature-weighted effective dispersion
+    delays) seeds DM; a difference beyond max_dphi turns falls back to
+    (phi_full, 0).  The seed moves only the Newton start.
+    """
+    B = gsr.shape[0]
+    g3r = torch.cat([gsr[:, 0], gsr[:, 1], gsr[:, 0] - gsr[:, 1]], dim=0)
+    g3i = torch.cat([gsi[:, 0], gsi[:, 1], gsi[:, 0] - gsi[:, 1]], dim=0)
+    ph = _brute_phase_seed(g3r, g3i, Ns=Ns)
+    phi_full, phi_hi, phi_lo = ph[:B], ph[B:2 * B], ph[2 * B:]
+    nchan = beta.shape[-1]
+    hi = torch.arange(nchan, device=beta.device) >= nchan // 2
+    w_hi = torch.where(hi[None, :], wcurv, torch.zeros_like(wcurv))
+    w_lo = wcurv - w_hi
+
+    def eff(wm):
+        s = torch.sum(wm, dim=-1)
+        return torch.sum(wm * beta, dim=-1) / torch.where(
+            s > 0.0, s, torch.ones_like(s)), s
+
+    b_full, _ = eff(wcurv)
+    b_hi, s_hi = eff(w_hi)
+    b_lo, s_lo = eff(w_lo)
+    dphi = mod_pm_half(phi_hi - phi_lo)
+    dbeta = kdm * (b_hi - b_lo)
+    ok = (torch.abs(dbeta) > 1e-30) & (s_hi > 0.0) & (s_lo > 0.0) & \
+        (torch.abs(dphi) < max_dphi)
+    dm0 = torch.where(ok, dphi / torch.where(ok, dbeta,
+                                             torch.ones_like(dbeta)),
+                      torch.zeros_like(dphi))
+    phi0 = mod_pm_half(phi_full - kdm * dm0 * b_full)
+    return phi0, dm0
+
+
+def _rereference(params, setup, nu_out_DM, nu_out_GM, nu_out_tau,
+                 dconst=DCONST):
+    """Transport fitted phi to the output references (tau linear and
+    identically zero on this path).  Reference: pptoaslib.py:1052-1065."""
+    phi, DM, GM = params[..., 0], params[..., 1], params[..., 2]
+    tau, alpha = params[..., 3], params[..., 4]
+    P = setup.P
+    phi_inf = phase_shifts(phi, DM, GM, math.inf, setup.nu_DM, setup.nu_GM,
+                           P, mod=False, dconst=dconst)
+    phi_out = phi_inf + (dconst / P) * DM * _inv2(nu_out_DM) + \
+        (dconst ** 2 / P) * GM * _inv4(nu_out_GM)
+    phi_out = mod_pm_half(phi_out)
+    tau_out = tau * (nu_out_tau / setup.nu_tau) ** alpha
+    return torch.stack([phi_out, DM, GM, tau_out, alpha], dim=-1)
+
+
+def _finalize(params_out, setup_out, fit_flags, fun, moments):
+    """Covariance, scales, SNR and chi2 at the output references, from
+    the optimizer's final moments rebased there (no pass over Gr/Gi)."""
+    m_out = stats.rebase_moments(moments, setup_out)
+    cov, perrs, scales, scale_errs, S = stats._covariance_core(
+        m_out, setup_out, fit_flags)
+    channel_snrs = scales * torch.sqrt(torch.clamp(S, min=0.0))
+    snr = torch.sqrt(torch.sum(channel_snrs ** 2, dim=-1))
+    chi2 = setup_out.Sd + fun
+    active = setup_out.w > 0.0
+    nbin = setup_out.nbin
+    nfit = sum(int(bool(f)) for f in fit_flags)
+    nact = torch.sum(active, dim=-1)
+    dof = nact * nbin - (nfit + nact)
+    red_chi2 = chi2 / dof
+    # per-channel reduced chi2 at the fitted amplitudes, floored on live
+    # channels (exactly 0 marks a dead channel downstream)
+    ch_chi2 = torch.clamp(setup_out.sd_chan - scales * scales * S,
+                          min=1e-30)
+    channel_red_chi2 = torch.where(active, ch_chi2 / (nbin - 2),
+                                   torch.zeros_like(ch_chi2))
+    return (cov, perrs, scales, scale_errs, channel_snrs, snr, chi2,
+            red_chi2, channel_red_chi2)
+
+
+def template_spectrum(model_port, f0_fact=F0_FACT):
+    """Full-band natural-order split spectrum (mr, mi) of a template
+    (nchan, nbin), as a host float64 rfft with DC zeroed unless f0_fact."""
+    if torch.is_tensor(model_port):
+        model_port = model_port.detach().cpu().numpy()
+    mf = np.fft.rfft(np.asarray(model_port, np.float64), axis=-1)
+    mr, mi = mf.real.copy(), mf.imag.copy()
+    if not f0_fact:
+        mr[..., 0] = 0.0
+        mi[..., 0] = 0.0
+    return mr, mi
+
+
+def fit_portrait_full_batch(data_ports, model_ft_ri, init_params, Ps, freqs,
+                            errs, weights=None, nu_fits=None,
+                            fit_flags=(1, 1, 0, 0, 0), max_iter=100,
+                            scales=None, dtype=None):
+    """Batched fit of every item of data_ports against one template.
+
+    data_ports: (B, nchan, nbin) float, or int16 with `scales` (B, nchan)
+    (int16-native ingest; requires config.F0_FACT falsy).
+    model_ft_ri: the template's natural-order split spectrum (mr, mi),
+    each (nchan, nh): nh = nbin/2 + 1 for the full band, or the capped
+    prefix NH = NQ*M' of a band_cap_model_ft spectrum (host numpy or
+    tensors; cast to the working dtype on the data's device).
+    init_params (B, 5); Ps (B,); freqs (B, nchan) or (nchan,); errs
+    (B, nchan) time-domain noise; weights optional (B, nchan) mask;
+    nu_fits (B, 3) or None (per-item mean frequency).
+    dtype: working float type (default: the data's, float32 for int16).
+    init_params[:, 0] (and [:, 1] when DM is fitted) are replaced by the
+    brute seed.  Returns a PortraitFitResult with a leading batch axis.
+    """
+    ff = tuple(int(bool(f)) for f in fit_flags)
+    if ff[3] or ff[4]:
+        raise NotImplementedError("fitting tau/alpha (the scattering fit) is "
+                                  "not ported: ROADMAP queue 1, item 12")
+    dev = data_ports.device
+    # The seed's (B, NH) @ (NH, Ns) product, the Newton steps and the
+    # covariance need f32-class matmuls: TF32 keeps ~3 decimal digits.
+    if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("fit_portrait_full_batch needs float32 matmuls: "
+                           "set torch.backends.cuda.matmul.allow_tf32 = "
+                           "False")
+    if dtype is None:
+        dtype = (torch.float32 if data_ports.dtype == torch.int16
+                 else data_ports.dtype)
+    if not dtype.is_floating_point:
+        raise TypeError(f"fit dtype must be floating, got {dtype}")
+    B, nchan, nbin = data_ports.shape
+
+    def as_t(v):
+        return torch.as_tensor(v, dtype=dtype, device=dev)
+
+    x = data_ports
+    if scales is not None:
+        if F0_FACT:
+            raise ValueError("int16 ingest requires F0_FACT zeroing")
+        scales = as_t(scales).expand(B, nchan).contiguous()
+    elif x.dtype != dtype:
+        x = x.to(dtype)
+    x = x.contiguous()
+    freqs = as_t(freqs)
+    if freqs.dim() == 1:
+        freqs = freqs.expand(B, nchan)
+    freqs = freqs.contiguous()
+    Ps = as_t(Ps)
+    errs = as_t(errs)
+    weights = torch.ones_like(errs) if weights is None else as_t(weights)
+    nu_fits = (freqs.mean(dim=-1)[:, None].expand(B, 3) if nu_fits is None
+               else as_t(nu_fits))
+    mr = as_t(model_ft_ri[0]).contiguous()
+    mi = as_t(model_ft_ri[1]).contiguous()
+    nh = mr.shape[-1]
+
+    errs_FT = errs * math.sqrt(nbin / 2.0)
+    w = torch.where(errs_FT > 0.0, errs_FT ** -2.0,
+                    torch.zeros_like(errs_FT)) * (weights > 0.0)
+    hi_mask = (torch.arange(nchan, device=dev) >= nchan // 2).to(dtype)
+    w_seed = torch.stack([w, w * hi_mask[None, :]], dim=-1).contiguous()
+    Gr, Gi, sd, gsr, gsi = fused_setup(x, mr, mi, f0_fact=bool(F0_FACT),
+                                       w=w_seed, scale=scales)
+    M2 = mr * mr + mi * mi
+    init = as_t(init_params).clone()
+    if ff[1]:
+        kvec = torch.arange(nh, dtype=dtype, device=dev)
+        wcurv = w * torch.sum(M2 * kvec * kvec, dim=-1)[None, :]
+        beta = freqs ** -2.0 - (nu_fits[:, 0] ** -2.0)[:, None]
+        kdm = DCONST / Ps
+        phi0, dm0 = _seed_phi_dm(gsr, gsi, wcurv, beta, kdm)
+        init[:, 0] = phi0
+        init[:, 1] = dm0
+    else:
+        init[:, 0] = _brute_phase_seed(gsr[:, 0], gsi[:, 0])
+    setup = stats.FitSetup(
+        Gr=Gr, Gi=Gi, M2=M2, w=w, freqs=freqs, P=Ps, nu_DM=nu_fits[:, 0],
+        nu_GM=nu_fits[:, 1], nu_tau=nu_fits[:, 2],
+        Sd=torch.sum(w * sd, dim=-1), S0=torch.sum(M2, dim=-1),
+        nbin=int(nbin), sd_chan=w * sd)
+
+    def fgh(xp):
+        return stats.chi2_value_grad_hess(xp, setup, fit_flags=ff)
+
+    res = newton.trust_region_minimize(fgh, init, max_iter=max_iter,
+                                       gtol=1e-11, xtol=1e-14, has_aux=True,
+                                       step_mask=ff)
+    nu_out_DM, nu_out_GM, nu_out_tau = nu_zeros.nu_zeros_closed_form(
+        setup, ff, res.aux)
+    if ff[1]:
+        nu_out_GM = nu_out_DM
+    elif ff[2]:
+        nu_out_DM = nu_out_GM
+    params_out = _rereference(res.x, setup, nu_out_DM, nu_out_GM,
+                              nu_out_tau)
+    setup_out = setup._replace(nu_DM=nu_out_DM, nu_GM=nu_out_GM,
+                               nu_tau=nu_out_tau)
+    (cov, perrs, scl, scl_errs, channel_snrs, snr, chi2, red_chi2,
+     ch_rchi2) = _finalize(params_out, setup_out, ff, res.fun, res.aux)
+    return PortraitFitResult(
+        params=params_out, param_errs=perrs, scales=scl,
+        scale_errs=scl_errs, nu_DM=nu_out_DM, nu_GM=nu_out_GM,
+        nu_tau=nu_out_tau, covariance_matrix=cov, chi2=chi2,
+        red_chi2=red_chi2, snr=snr, channel_snrs=channel_snrs,
+        niter=res.niter, nfeval=res.nfev, return_code=res.status,
+        channel_red_chi2=ch_rchi2)

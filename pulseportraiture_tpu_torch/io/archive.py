@@ -1,0 +1,127 @@
+"""load_data: an archive file into the DataBunch record.
+
+Port of pulseportraiture_tpu.io.archive.load_data (same DataBunch schema,
+reference pplib.py:2650-2814), built on the shared PSRFITS codec and
+ephemeris geometry and on this package's own noise estimators (the JAX
+loader imports ops.noise, which imports jax).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from pulseportraiture_tpu.io.archive import _ephemeris_geometry
+from pulseportraiture_tpu.io.psrfits import read_psrfits
+from pulseportraiture_tpu.io.telescopes import telescope_code
+from pulseportraiture_tpu.utils import DataBunch, get_bin_centers
+from pulseportraiture_tpu_torch.ops.noise import get_noise_PS, get_SNR
+
+
+def load_data(filename, state=None, dedisperse=False, dededisperse=False,
+              tscrunch=False, pscrunch=False, fscrunch=False,
+              rm_baseline=True, flux_prof=False, return_arch=True,
+              quiet=True):
+    """Load an archive file into the universal DataBunch record.
+
+    raw_i2/raw_scl (int16 samples + per-channel DAT_SCL) are kept when
+    the file is i2-quantized and no transform rewrote the samples; the
+    per-channel offsets they drop only feed the DC harmonic.
+    """
+    arch = read_psrfits(filename)
+    raw_ok = arch.raw_i2 is not None and arch.npol == 1
+    if state is not None and state != arch.state and state == "Intensity":
+        arch.pscrunch()
+    if dedisperse:
+        raw_ok = raw_ok and (arch.dedispersed or arch.DM == 0.0)
+        arch.dedisperse()
+    if dededisperse:
+        raw_ok = raw_ok and (not arch.dedispersed or arch.DM == 0.0)
+        arch.dededisperse()
+    DM = arch.DM
+    dmc = arch.dedispersed
+    if state is not None and state != arch.state:
+        raw_ok = raw_ok and arch.npol == 1
+        arch.convert_state(state)
+    if rm_baseline:
+        arch.remove_baseline()
+    if tscrunch:
+        raw_ok = False
+        arch.tscrunch()
+    if pscrunch:
+        raw_ok = raw_ok and arch.npol == 1
+        arch.pscrunch()
+    if fscrunch:
+        raw_ok = False
+        arch.fscrunch()
+    nsub, npol, nchan, nbin = arch.data.shape
+    doppler_factors, parallactic_angles = _ephemeris_geometry(arch, nsub)
+    freqs = np.asarray(arch.freqs, dtype=np.float64)
+    if freqs.shape[0] != nsub:
+        freqs = np.broadcast_to(freqs[:1], (nsub, nchan)).copy()
+    weights = np.asarray(arch.weights, dtype=np.float64)
+    weights_norm = np.where(weights == 0.0, 0.0, 1.0)
+    # the noise estimate is an error bar: f32 FFTs, carried as f64
+    subints_f32 = np.asarray(arch.data, dtype=np.float32)
+    noise_stds = np.asarray(get_noise_PS(subints_f32, chans=True),
+                            dtype=np.float64)
+    ok_isubs = np.compress(weights_norm.mean(axis=1), range(nsub))
+    ok_ichans = [np.compress(weights_norm[isub], range(nchan))
+                 for isub in range(nsub)]
+    nz = noise_stds[noise_stds > 0.0]
+    SNRs = np.asarray(
+        get_SNR(subints_f32,
+                noise=np.float32(np.sqrt(np.mean(nz ** 2)) if nz.size
+                                 else 1.0)),
+        dtype=np.float64)
+    if flux_prof:
+        fl = arch.copy()
+        fl.pscrunch()
+        fl.dedisperse()
+        fl.tscrunch()
+        flux_prof_arr = fl.data.mean(axis=3)[0][0]
+    else:
+        flux_prof_arr = np.array([])
+    if not quiet:
+        print(f"Read {filename}: {arch.source} P={arch.Ps[0] * 1000:.3f} ms "
+              f"DM={DM:.6f} {nchan}x{nbin} nsub={nsub} state={arch.state}")
+    data = DataBunch(
+        arch=arch if return_arch else None, backend=arch.backend,
+        backend_delay=arch.backend_delay, bw=arch.bw,
+        doppler_factors=doppler_factors, DM=DM, dmc=dmc,
+        epochs=list(arch.epochs), filename=filename,
+        flux_prof=flux_prof_arr, freqs=freqs,
+        frontend=arch.frontend,
+        integration_length=float(arch.subtimes.sum()), nbin=nbin,
+        nchan=nchan, noise_stds=noise_stds, npol=npol, nsub=nsub,
+        nu0=arch.nu0, ok_ichans=ok_ichans, ok_isubs=ok_isubs,
+        parallactic_angles=parallactic_angles,
+        phases=get_bin_centers(nbin, lo=0.0, hi=1.0),
+        Ps=np.asarray(arch.Ps, dtype=np.float64), SNRs=SNRs,
+        source=arch.source, state=arch.state,
+        subints=np.asarray(arch.data),
+        subtimes=list(np.asarray(arch.subtimes, dtype=np.float64)),
+        telescope=arch.telescope, telescope_code=telescope_code(
+            arch.telescope), weights=weights)
+    if raw_ok:
+        data.raw_i2 = arch.raw_i2[:, 0]
+        data.raw_scl = arch.raw_scl[:, 0].astype(np.float32)
+
+    # diagnostic fields the TOA pipeline never reads materialize on first
+    # access
+    def _masks():
+        m = np.einsum("ij,k->ijk", weights_norm, np.ones(nbin))
+        return np.einsum("j,ikl->ijkl", np.ones(npol), m)
+
+    def _prof_arch():
+        pa = arch.copy()
+        pa.pscrunch()
+        pa.dedisperse()
+        pa.tscrunch()
+        pa.fscrunch()
+        return pa.data[0, 0, 0]
+
+    data.add_lazy("masks", _masks)
+    data.add_lazy("prof", _prof_arch)
+    data.add_lazy("prof_noise", lambda: float(get_noise_PS(data.prof)))
+    data.add_lazy("prof_SNR", lambda: float(get_SNR(data.prof)))
+    return data

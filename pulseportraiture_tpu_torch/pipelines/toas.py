@@ -1,0 +1,488 @@
+"""Wideband TOA/DM measurement (the pptoas pipeline) on the port.
+
+Port of pulseportraiture_tpu.pipelines.toas.GetTOAs.get_TOAs for the
+wideband (phi, DM) fit (fit_DM, no GM, no scattering, zero-covariance
+output references).  Per archive: load, prepare every subint against a
+cached template (evaluated, base-rotated by the header DM on the host in
+float64, and band-capped for float32 fits), fit the subints in chunked
+batches with fitters.portrait.fit_portrait_full_batch on the chosen
+device, and assemble TOAs with Doppler-corrected DMs and .tim flags.
+Reference: pptoas.py:150-743.
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+
+import numpy as np
+import torch
+
+from pulseportraiture_tpu.config import DCONST, F0_FACT
+from pulseportraiture_tpu.io.tim import TOA
+from pulseportraiture_tpu.utils import weighted_mean
+from pulseportraiture_tpu_torch._device import resolve_device
+from pulseportraiture_tpu_torch.fitters.portrait import (
+    fit_portrait_full_batch, template_spectrum)
+from pulseportraiture_tpu_torch.io.archive import load_data
+from pulseportraiture_tpu_torch.ops.rotate import rotate_portrait_np
+from pulseportraiture_tpu_torch.ops.setup_dft import (band_cap_model_ft,
+                                                      cap_nharm)
+
+_MAX_CHUNK = 64
+_MAX_TEMPLATES = 8     # cached template evaluations kept at once
+
+
+def _auto_fit_chunk(nchan, nbin, nh, x_itemsize, f_itemsize, device):
+    """Subints per batched fit: what fits 60% of the card's free memory
+    (torch.cuda.mem_get_info), at most 64.  Per item the card holds the
+    data portrait, the persistent Gr/Gi and the setup's transients."""
+    if device.type != "cuda":
+        return _MAX_CHUNK
+    per_item = nchan * nbin * x_itemsize + 6 * f_itemsize * nchan * nh
+    free, _ = torch.cuda.mem_get_info(device)
+    return int(max(1, min(_MAX_CHUNK, int(0.6 * free) // per_item)))
+
+
+def _resolve_datafiles(datafiles):
+    """A single archive path, a list of paths, or a metafile of paths."""
+    if isinstance(datafiles, (list, tuple)):
+        return list(datafiles)
+    with open(datafiles, "rb") as f:
+        magic = f.read(6)
+    if magic == b"SIMPLE":
+        return [datafiles]
+    with open(datafiles) as f:
+        return [line.strip() for line in f if line.strip()]
+
+
+def _parallactic_angle_for(data, epoch):
+    """Parallactic angle [deg] from the archive's ephemeris + telescope
+    (NaN when unknown; reference pptoas.py:1081-1082)."""
+    try:
+        from pulseportraiture_tpu.io.par import parse_par
+        from pulseportraiture_tpu.io.parang import parallactic_angle
+        eph = getattr(data.arch, "ephemeris_lines", None)
+        if not eph:
+            return float("nan")
+        par = parse_par(eph)
+        return round(parallactic_angle(data.telescope, par.RAJ, par.DECJ,
+                                       epoch.in_days()), 4)
+    except (AttributeError, ValueError):
+        return float("nan")
+
+
+class _ModelSource:
+    """Evaluate the template portrait at a subint's (freqs, nbin)."""
+
+    def __init__(self, modelfile):
+        self.modelfile = modelfile
+        with open(modelfile, "rb") as f:
+            magic = f.read(6)
+        if magic == b"SIMPLE":
+            from pulseportraiture_tpu.io.psrfits import read_psrfits
+            self.kind, self.payload = "fits", read_psrfits(modelfile)
+        elif magic[:2] in (b"\x80\x02", b"\x80\x03", b"\x80\x04",
+                           b"(l") or str(modelfile).endswith((".spl",
+                                                              ".npz")):
+            from pulseportraiture_tpu_torch.models.spline_io import \
+                read_spline_model
+            self.kind = "spline"
+            self.payload = read_spline_model(modelfile, quiet=True)
+        else:
+            raise NotImplementedError(
+                f"{modelfile}: .gmodel (Gaussian) templates are not ported "
+                "yet (ROADMAP queue 1, item 9: ops/gaussian and the "
+                "Gaussian portrait generator)")
+
+    def eval(self, phases, freqs):
+        """Template portrait (nchan, nbin) at the given grid."""
+        nbin = len(phases)
+        if self.kind == "spline":
+            from pulseportraiture_tpu_torch.models.spline import \
+                gen_spline_portrait_np
+            name, source, datafile, mean_prof, eigvec, tck = self.payload
+            return gen_spline_portrait_np(
+                mean_prof, freqs, eigvec, tck,
+                nbin if nbin != len(mean_prof) else None)
+        # FITS archive template: t/p-scrunched, baseline removed,
+        # nearest-frequency channel matching (pptoas.py:320-339)
+        arch = self.payload.copy()
+        arch.tscrunch()
+        arch.pscrunch()
+        arch.remove_baseline()
+        tmpl = arch.data[0, 0]
+        tmpl_freqs = arch.freqs[0]
+        if tmpl.shape[-1] != nbin:
+            raise ValueError("Model template nbin mismatch")
+        if tmpl.shape[0] == 1:
+            return np.tile(tmpl[0], (len(freqs), 1))
+        idx = np.array([np.argmin(np.abs(tmpl_freqs - f)) for f in freqs])
+        return tmpl[idx]
+
+
+class GetTOAs:
+    """Measure wideband TOAs+DMs for archives against a template.
+
+    device: "cuda" (the default; requires a card) or "cpu".
+    dtype: the fit's float type, float32 (the card's working type) or
+    float64 (CPU parity runs).  Reference: pptoas.py:81-743.
+    """
+
+    _PER_ARCHIVE = ("ok_isubs", "epochs", "MJDs", "Ps", "phis", "phi_errs",
+                    "TOAs", "TOA_errs", "DMs", "DM_errs", "GMs", "GM_errs",
+                    "scales", "scale_errs", "snrs", "channel_snrs",
+                    "fit_channel_red_chi2s", "fluxes", "flux_errs",
+                    "red_chi2s", "covariances", "nfevals", "rcs", "nu_fits",
+                    "nu_refs")
+
+    def __init__(self, datafiles, modelfile, device="cuda",
+                 dtype=torch.float32, quiet=False):
+        self.device = resolve_device(device)
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"dtype must be float32 or float64, got {dtype}")
+        self.dtype = dtype
+        self.datafiles = _resolve_datafiles(datafiles)
+        self.model_source = _ModelSource(modelfile)
+        self.modelfile = modelfile
+        self.quiet = quiet
+        self.obs, self.nu0s, self.ok_idatafiles, self.order = [], [], [], []
+        self.DM0s, self.DeltaDM_means, self.DeltaDM_errs = [], [], []
+        self.fit_durations, self.TOA_list = [], []
+        for name in self._PER_ARCHIVE:
+            setattr(self, name, [])
+        self.mharms = []
+        self.fit_timing = {}
+
+    def get_TOAs(self, datafile=None, tscrunch=False, nu_refs=None,
+                 DM0=None, bary=True, fit_DM=True, fit_GM=False,
+                 fit_scat=False, print_phase=False, print_flux=False,
+                 print_parangle=False, addtnl_toa_flags=None, nu_fits=None,
+                 quiet=None, mesh=None):
+        """Fit every subint of every archive; fills TOA_list and the
+        per-archive lists.  Reference: pptoas.py:150-743."""
+        if mesh is not None:
+            raise NotImplementedError("multi-device sharding (mesh) is not "
+                                      "ported: ROADMAP queue 1, item 19")
+        if fit_scat:
+            raise NotImplementedError("fit_scat (the scattering fit) is not "
+                                      "ported: ROADMAP queue 1, item 12")
+        if fit_GM:
+            raise NotImplementedError("fit_GM needs the GM nu_zeros branches:"
+                                      " ROADMAP queue 1, item 5")
+        if nu_refs is not None:
+            raise NotImplementedError("user output references (nu_refs) are "
+                                      "not ported: ROADMAP queue 1, item 11")
+        quiet = self.quiet if quiet is None else quiet
+        datafiles = [datafile] if datafile is not None else self.datafiles
+        addtnl_toa_flags = addtnl_toa_flags or {}
+        fit_flags = (1, int(fit_DM), 0, 0, 0)
+        f32 = self.dtype == torch.float32
+        np_dtype = np.float32 if f32 else np.float64
+        timing = {"load_s": 0.0, "fit_s": 0.0, "assemble_s": 0.0,
+                  "wall_s": 0.0}
+        self.fit_timing = timing
+        start_all = time.time()
+        model_cache = {}
+        template_ids = itertools.count()
+        jobs, results, buffers = [], {}, {}
+        next_assemble = 0
+
+        def prep_archive(idf, df):
+            t0 = time.time()
+            try:
+                data = load_data(df, dedisperse=False, dededisperse=True,
+                                 tscrunch=tscrunch, pscrunch=True,
+                                 rm_baseline=True, quiet=quiet)
+            except (OSError, ValueError, KeyError, EOFError) as exc:
+                print(f"Skipping {df}: could not load ({exc})")
+                return None
+            DM0_arch = data.DM if DM0 is None else DM0
+            i2_ok = f32 and not F0_FACT and \
+                getattr(data, "raw_i2", None) is not None
+            preps = []
+            if len(model_cache) > _MAX_TEMPLATES:
+                # campaigns share one grid; differing periods or grids
+                # would otherwise grow the cache without bound (queued
+                # subints keep their own template references)
+                model_cache.clear()
+            for isub in data.ok_isubs:
+                P = data.Ps[isub]
+                freqs = data.freqs[isub]
+                weights = data.weights[isub]
+                okc = data.ok_ichans[isub]
+                if len(okc) < 2:
+                    raise NotImplementedError(
+                        f"{df} subint {isub}: {len(okc)} live channel(s); "
+                        "the per-subint fallback for degenerate channel "
+                        "counts is not ported (ROADMAP queue 1, item 10)")
+                errs = np.where(weights > 0, data.noise_stds[isub, 0], 0.0)
+                # P quantized to 6 significant digits keys the cache, so
+                # spin-down drift does not fork the shared template; the
+                # mismatch is restored exactly in assembly
+                P_key = float(np.format_float_scientific(P, precision=5))
+                mkey = (freqs.tobytes(), P_key, float(DM0_arch))
+                entry = model_cache.get(mkey)
+                if entry is None:
+                    model = self.model_source.eval(data.phases, freqs)
+                    nu_anchor = float(freqs.mean())
+                    # dispersion ADDED to the template once, host f64:
+                    # the fit solves a small residual dDM around DM0
+                    model_rot = np.asarray(rotate_portrait_np(
+                        model, 0.0, -DM0_arch, float(P), freqs, nu_anchor),
+                        np_dtype)
+                    mr, mi = template_spectrum(model_rot)
+                    mharm = None
+                    if f32:
+                        # model-band harmonic cap: below the f32 noise,
+                        # not below f64's, so float64 fits keep the band
+                        mr_c, mi_c, mharm = band_cap_model_ft(
+                            mr, mi, data.nbin)
+                        if mharm is not None:
+                            nh = cap_nharm(data.nbin, mharm)
+                            mr, mi = mr_c[:, :nh], mi_c[:, :nh]
+                    entry = dict(key=next(template_ids), model=model_rot,
+                                 nu_anchor=nu_anchor, P_model=float(P),
+                                 mft=(mr, mi), mharm=mharm, dev=None)
+                    model_cache[mkey] = entry
+                freqsx = freqs[okc]
+                if nu_fits is not None:
+                    nu_fit = float(np.atleast_1d(nu_fits)[0])
+                else:
+                    SNRsx = data.SNRs[isub, 0][okc]
+                    nu0 = (freqsx.min() + freqsx.max()) * 0.5
+                    wgt = SNRsx * freqsx ** -2.0
+                    nu_fit = float(nu0 + ((freqsx - nu0) * wgt).sum() /
+                                   wgt.sum())
+                if i2_ok:
+                    port, scale = data.raw_i2[isub], data.raw_scl[isub]
+                else:
+                    port = np.asarray(data.subints[isub, 0], np_dtype)
+                    scale = None
+                preps.append(dict(isub=isub, P=P, freqs=freqs,
+                                  weights=weights, port=port, scale=scale,
+                                  errs=errs, okc=okc, entry=entry,
+                                  nu_fit=nu_fit, DM_base=DM0_arch))
+            # the preps hold what the fits need: free the archive's sample
+            # arrays (the int16 ports are views, kept until fitted)
+            data["subints"] = None
+            data.pop("raw_i2", None)
+            data.pop("raw_scl", None)
+            if data.arch is not None:
+                data.arch.data = None
+                data.arch.raw_i2 = None
+            timing["load_s"] += time.time() - t0
+            return dict(idf=idf, df=df, data=data, DM0_arch=DM0_arch,
+                        preps=preps)
+
+        def fit_chunk(items):
+            t0 = time.time()
+            entry = items[0][1]["entry"]
+            ports = np.stack([p.pop("port") for _, p in items])
+            if entry["dev"] is None:
+                entry["dev"] = tuple(
+                    torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                                    device=self.device)
+                    for a in entry["mft"])
+
+            def dev(a, dt=self.dtype):
+                return torch.as_tensor(np.asarray(a), dtype=dt,
+                                       device=self.device)
+
+            x = torch.from_numpy(ports).to(self.device)
+            del ports
+            scales = None
+            if items[0][1]["scale"] is not None:
+                scales = dev(np.stack([p.pop("scale") for _, p in items]),
+                             torch.float32)
+            res = fit_portrait_full_batch(
+                x, entry["dev"], dev(np.zeros((len(items), 5))),
+                dev([p["P"] for _, p in items]),
+                dev(np.stack([p["freqs"] for _, p in items])),
+                dev(np.stack([p["errs"] for _, p in items])),
+                nu_fits=dev([[p["nu_fit"]] * 3 for _, p in items]),
+                fit_flags=fit_flags, scales=scales, dtype=self.dtype)
+            host = type(res)(*[None if v is None else v.cpu().numpy()
+                               for v in res])
+            dur = (time.time() - t0) / len(items)
+            timing["fit_s"] += time.time() - t0
+            for i, (iarch, p) in enumerate(items):
+                results[(iarch, p["isub"])] = (
+                    type(host)(*[v[i] for v in host]), dur)
+
+        def flush(key, final=False):
+            items = buffers[key]
+            if not items:
+                return
+            shape, x_itemsize = key[0], np.dtype(key[1]).itemsize
+            nh = len(items[0][1]["entry"]["mft"][0][0])
+            chunk = _auto_fit_chunk(shape[0], shape[1], nh, x_itemsize,
+                                    4 if f32 else 8, self.device)
+            while len(items) >= chunk or (final and items):
+                fit_chunk(items[:chunk])
+                del items[:chunk]
+
+        def drain_assembly():
+            nonlocal next_assemble
+            while next_assemble < len(jobs):
+                job = jobs[next_assemble]
+                if any((next_assemble, p["isub"]) not in results
+                       for p in job["preps"]):
+                    return
+                self._assemble_archive(job, results, next_assemble, bary,
+                                       fit_DM, print_phase, print_flux,
+                                       print_parangle, addtnl_toa_flags,
+                                       timing)
+                for p in job["preps"]:
+                    del results[(next_assemble, p["isub"])]
+                jobs[next_assemble] = None      # assembled: release it
+                next_assemble += 1
+
+        for idf, df in enumerate(datafiles):
+            job = prep_archive(idf, df)
+            if job is None:
+                continue
+            self.ok_idatafiles.append(idf)
+            iarch = len(jobs)
+            jobs.append(job)
+            for p in job["preps"]:
+                key = (p["port"].shape, p["port"].dtype.str,
+                       p["entry"]["key"])
+                buffers.setdefault(key, []).append((iarch, p))
+            for key in list(buffers):
+                flush(key)
+            drain_assembly()
+        for key in list(buffers):
+            flush(key, final=True)
+        drain_assembly()
+        timing["wall_s"] = time.time() - start_all
+        self.mharms = sorted({e["mharm"] or 0 for e in model_cache.values()})
+        if not quiet and self.TOA_list:
+            med_err = np.median([t.TOA_error for t in self.TOA_list])
+            print(f"\nFit {len(self.TOA_list)} TOAs in "
+                  f"{timing['wall_s']:.2f} s; Med. TOA error is "
+                  f"{med_err:.3f} us")
+
+    def _assemble_archive(self, job, results, iarch, bary, fit_DM,
+                          print_phase, print_flux, print_parangle,
+                          addtnl_toa_flags, timing):
+        """TOAs and per-archive records from the fitted subints."""
+        t0 = time.time()
+        df, data, DM0_arch = job["df"], job["data"], job["DM0_arch"]
+        nbin = data.nbin
+        rec = {name: [] for name in self._PER_ARCHIVE}
+        arch_duration = 0.0
+        for prep in job["preps"]:
+            isub, P = prep["isub"], prep["P"]
+            freqsx = prep["freqs"][prep["okc"]]
+            entry = prep["entry"]
+            res, duration = results[(iarch, isub)]
+            arch_duration += duration
+            # restore the base dispersion (host f64): the fit solved dDM
+            # around DM_base against the template rotated at P_model and
+            # anchored at nu_anchor
+            DM_base, P_model = prep["DM_base"], entry["P_model"]
+            base_shift = DCONST * DM_base / P_model * (
+                float(res.nu_DM) ** -2.0 - entry["nu_anchor"] ** -2.0)
+            phi = (float(res.phi) + base_shift + 0.5) % 1.0 - 0.5
+            phi_err = float(res.phi_err)
+            DM_fit = DM_base * (P / P_model) + float(res.DM)
+            GM_fit = float(res.GM)
+            epoch = data.epochs[isub]
+            toa_mjd = epoch.add_seconds((phi * P) + data.backend_delay)
+            toa_err_us = phi_err * P * 1e6
+            df_dop = data.doppler_factors[isub]
+            if bary:
+                DM_bary, GM_bary = DM_fit * df_dop, GM_fit * df_dop ** 3
+            else:
+                DM_bary, GM_bary = DM_fit, GM_fit
+            scales_np = np.asarray(res.scales)
+            scale_errs_np = np.asarray(res.scale_errs)
+            model_means = entry["model"][prep["okc"]].mean(-1)
+            flux_vals = scales_np[prep["okc"]] * model_means
+            flux_errs_chan = np.abs(model_means) * \
+                scale_errs_np[prep["okc"]]
+            good = flux_errs_chan > 0
+            if good.any():
+                flux, flux_err = weighted_mean(flux_vals[good],
+                                               flux_errs_chan[good])
+                flux_freq, _ = weighted_mean(freqsx[good],
+                                             flux_errs_chan[good])
+            else:
+                flux, flux_err, flux_freq = 0.0, 0.0, 0.0
+            flags = dict(
+                be=data.backend, fe=data.frontend,
+                f=f"{data.frontend}_{data.backend}",
+                nbin=nbin, nch=data.nchan, nchx=len(prep["okc"]),
+                bw=float(freqsx.max() - freqsx.min()),
+                chbw=float(abs(data.bw) / data.nchan),
+                subint=int(isub), tobs=float(data.subtimes[isub]),
+                fratio=float(freqsx.max() / freqsx.min()),
+                tmplt=self.modelfile, snr=float(res.snr))
+            flags["gof"] = float(res.red_chi2)
+            if print_phase:
+                flags["phs"] = phi
+                flags["phs_err"] = phi_err
+            if print_flux:
+                flags["flux"] = float(flux)
+                flags["flux_err"] = float(flux_err)
+                flags["flux_ref_freq"] = float(flux_freq)
+            if print_parangle:
+                pa = _parallactic_angle_for(data, epoch)
+                if pa == pa:  # not NaN
+                    flags["par_angle"] = pa
+            flags.update(addtnl_toa_flags)
+            # no DM flags when DM was not fitted (pptoas.py:608-610)
+            self.TOA_list.append(TOA(
+                df, float(res.nu_DM), toa_mjd, toa_err_us, data.telescope,
+                data.telescope_code, DM=DM_bary if fit_DM else None,
+                DM_error=float(res.DM_err) if fit_DM else None,
+                flags=flags))
+            for name, val in (
+                    ("ok_isubs", isub), ("epochs", epoch),
+                    ("MJDs", epoch.in_days()), ("Ps", P), ("phis", phi),
+                    ("phi_errs", phi_err), ("TOAs", toa_mjd),
+                    ("TOA_errs", toa_err_us), ("DMs", DM_bary),
+                    ("DM_errs", float(res.DM_err)), ("GMs", GM_bary),
+                    ("GM_errs", float(res.GM_err)), ("scales", scales_np),
+                    ("scale_errs", scale_errs_np),
+                    ("snrs", float(res.snr)),
+                    ("channel_snrs", np.asarray(res.channel_snrs)),
+                    ("fit_channel_red_chi2s",
+                     np.asarray(res.channel_red_chi2)),
+                    ("fluxes", flux), ("flux_errs", flux_err),
+                    ("red_chi2s", float(res.red_chi2)),
+                    ("covariances", np.asarray(res.covariance_matrix)),
+                    ("nfevals", int(res.nfeval)),
+                    ("rcs", int(res.return_code)),
+                    ("nu_fits", np.array([prep["nu_fit"]] * 3)),
+                    ("nu_refs", (float(res.nu_DM), float(res.nu_GM),
+                                 float(res.nu_tau)))):
+                rec[name].append(val)
+        # per-archive weighted-mean DeltaDM (pptoas.py:665-682)
+        DMs_arr = np.asarray(rec["DMs"])
+        DM_errs_arr = np.asarray(rec["DM_errs"])
+        if len(DMs_arr) and DM_errs_arr.max() > 0:
+            dm_mean, dm_err = weighted_mean(DMs_arr - DM0_arch, DM_errs_arr)
+            resid = (DMs_arr - DM0_arch) - dm_mean
+            if len(DMs_arr) > 1:
+                dm_rchi2 = np.sum((resid / DM_errs_arr) ** 2) / \
+                    (len(DMs_arr) - 1)
+                dm_err *= max(1.0, dm_rchi2 ** 0.5)
+        else:
+            dm_mean, dm_err = 0.0, 0.0
+        self.order.append(df)
+        self.obs.append(data.telescope)
+        self.nu0s.append(data.nu0)
+        self.DM0s.append(DM0_arch)
+        self.DeltaDM_means.append(dm_mean)
+        self.DeltaDM_errs.append(dm_err)
+        self.fit_durations.append(arch_duration)
+        as_array = {"MJDs", "Ps", "phis", "phi_errs", "TOA_errs", "DMs",
+                    "DM_errs", "GMs", "GM_errs", "snrs", "fluxes",
+                    "flux_errs", "red_chi2s", "nfevals", "rcs"}
+        for name in self._PER_ARCHIVE:
+            v = rec[name]
+            getattr(self, name).append(np.asarray(v) if name in as_array
+                                       else v)
+        timing["assemble_s"] += time.time() - t0

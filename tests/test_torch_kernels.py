@@ -1,0 +1,192 @@
+"""The port's CUDA kernels against their plain torch twins, on the card.
+
+Needs an NVIDIA card (and nvcc to build csrc/); every test here skips
+without one.  On the card machine, which has no JAX:
+
+    python -m pytest --noconftest -q tests/test_torch_kernels.py
+
+Tolerances: the kernels compute in float32 and are held against the twin
+in float64 on the same (f32-exact) inputs.  The bound is stated relative
+to the largest magnitude in the output (or to the sum of magnitudes of
+the summed terms), with room for f32 rounding over nbin/nharm-term sums
+and different summation orders.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pulseportraiture_tpu_torch.ops import moments as mom
+from pulseportraiture_tpu_torch.ops import setup_dft as sdft
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "False)")
+    return torch.device("cuda")
+
+
+def _portrait(rng, B, nchan, nbin, noise=0.1):
+    x = (np.arange(nbin) + 0.5) / nbin
+    prof = np.exp(-0.5 * ((x - 0.4) / 0.02) ** 2) + \
+        0.4 * np.exp(-0.5 * ((x - 0.47) / 0.01) ** 2)
+    freqs = np.linspace(1100.0, 1900.0, nchan)
+    model = prof[None, :] * (freqs[:, None] / 1500.0) ** -1.5
+    shifts = rng.uniform(-0.05, 0.05, (B, nchan, 1))
+    k = 2j * np.pi * np.arange(nbin // 2 + 1)
+    data = np.fft.irfft(np.fft.rfft(model, axis=-1) * np.exp(-k * shifts),
+                        n=nbin, axis=-1)
+    data = data + rng.normal(0.0, noise, data.shape)
+    return model, data.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh", [128, 1025, 2049])
+def test_phase_moments_kernel_matches_twin(cuda, nh):
+    rng = np.random.default_rng(nh)
+    B, nchan = 3, 77
+    Gr = rng.normal(size=(B, nchan, nh)).astype(np.float32)
+    Gi = rng.normal(size=(B, nchan, nh)).astype(np.float32)
+    phis = rng.uniform(-3.0, 3.0, (B, nchan)).astype(np.float32)
+    t = [torch.from_numpy(a).to(cuda) for a in (phis, Gr, Gi)]
+    n0 = mom.phase_moments.launches
+    got = mom.phase_moments(*t)
+    torch.cuda.synchronize()
+    assert mom.phase_moments.launches == n0 + 1
+    ref = mom.phase_moments_reference(*[a.double() for a in t])
+    k = np.arange(nh)
+    # bound: f32 rounding of the phasor (~1e-6 rad at k ~ 4096 after the
+    # double-single reduction) and of the sums, relative to sum |terms|
+    scale = np.sum(np.abs(Gr) + np.abs(Gi), axis=-1)
+    for g, r, kp in zip(got, ref, (0, 1, 2)):
+        w = np.sum((np.abs(Gr) + np.abs(Gi)) * k ** kp, axis=-1) * \
+            (2 * np.pi) ** kp
+        err = np.abs(g.double().cpu().numpy() - r.cpu().numpy())
+        assert np.all(err <= 2e-6 * (w + scale)), (kp, err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbin,capped,i16,f0_fact,nchan,seeds", [
+    (512, True, False, False, 70, True),
+    (512, False, False, False, 70, True),
+    (512, True, True, False, 64, True),
+    (2048, False, True, False, 130, True),
+    (2048, True, False, True, 33, True),
+    (256, False, False, True, 5, True),
+    (255, False, False, False, 7, False),    # odd nbin: no Nyquist term
+    (512, True, True, False, 64, False),
+])
+def test_fused_setup_kernel_matches_twin(cuda, nbin, capped, i16, f0_fact,
+                                         nchan, seeds):
+    rng = np.random.default_rng(nbin + nchan)
+    B = 3
+    model, data = _portrait(rng, B, nchan, nbin)
+    mf = np.fft.rfft(model, axis=-1)
+    mr, mi = mf.real.astype(np.float32), mf.imag.astype(np.float32)
+    if capped:
+        mr, mi, mh = sdft.band_cap_model_ft(mr, mi, nbin, f0_fact=f0_fact)
+        assert mh is not None
+        nh = sdft.cap_nharm(nbin, mh)
+        mr, mi = mr[:, :nh], mi[:, :nh]
+    scale = None
+    x = data
+    if i16:
+        from pulseportraiture_tpu.io.native import quantize_i2
+        raw, scl, _ = quantize_i2(data)
+        x, scale = raw, scl.astype(np.float32)
+    w = rng.uniform(0.5, 2.0, (B, nchan, 2)).astype(np.float32)
+    w[:, : nchan // 2, 1] = 0.0
+    dev = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+           for a in (x, mr, mi, w)]
+    sc = None if scale is None else torch.from_numpy(scale).to(cuda)
+    wt = dev[3] if seeds else None
+    n0 = sdft.fused_setup.launches
+    got = sdft.fused_setup(dev[0], dev[1], dev[2], f0_fact=f0_fact, w=wt,
+                           scale=sc)
+    torch.cuda.synchronize()
+    assert sdft.fused_setup.launches == n0 + 1
+    assert len(got) == (5 if seeds else 3)
+    ref = sdft.fused_setup_reference(
+        dev[0], dev[1].double(), dev[2].double(), f0_fact=f0_fact,
+        w=None if wt is None else wt.double(),
+        scale=None if sc is None else sc.double())
+    names = ("Gr", "Gi", "sd", "gsr", "gsi")
+    gmax = max(float(ref[0].abs().max()), float(ref[1].abs().max()))
+    smax = max(float(r.abs().max()) for r in ref[3:]) if seeds else 0.0
+    for name, g, r in zip(names, got, ref):
+        err = float((g.double() - r).abs().max())
+        bound = {"sd": 2e-5 * float(r.abs().max()),
+                 "gsr": 2e-5 * smax, "gsi": 2e-5 * smax}.get(name,
+                                                          2e-5 * gmax)
+        assert err <= bound, (name, err, bound)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros((1, 4, 256), dtype=torch.float64, device=cuda)
+    m = torch.zeros((4, 129), dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError):
+        sdft.fused_setup(x, m, m)
+    with pytest.raises(TypeError):
+        mom.phase_moments(torch.zeros((1, 4), dtype=torch.float64,
+                                      device=cuda), m[None].double(),
+                          m[None].double())
+    with pytest.raises(ValueError):
+        mom.phase_moments(torch.zeros((1, 4), device=cuda),
+                          torch.zeros((1, 4, 5000), device=cuda),
+                          torch.zeros((1, 4, 5000), device=cuda))
+    g = torch.zeros((1, 33, 4), device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError):          # not contiguous
+        mom.phase_moments(torch.zeros((1, 4), device=cuda), g, g)
+
+
+@pytest.mark.cuda
+def test_batched_fit_on_card_matches_cpu_float64(cuda):
+    from pulseportraiture_tpu.config import DCONST
+    from pulseportraiture_tpu_torch.fitters.portrait import (
+        fit_portrait_full_batch, template_spectrum)
+    rng = np.random.default_rng(0)
+    B, nchan, nbin, P, noise = 4, 256, 512, 0.003, 0.1
+    model, _ = _portrait(rng, 1, nchan, nbin)
+    freqs = np.linspace(1100.0, 1900.0, nchan)
+    nu_fit = freqs.mean()
+    phis = rng.uniform(-0.01, 0.01, B)
+    dms = rng.uniform(-2e-4, 2e-4, B)
+    k = 2j * np.pi * np.arange(nbin // 2 + 1)
+    mf = np.fft.rfft(model, axis=-1)
+    data = np.stack([np.fft.irfft(mf * np.exp(-k * (
+        phis[i] + DCONST * dms[i] / P * (freqs ** -2 - nu_fit ** -2))[:,
+        None]), n=nbin, axis=-1) for i in range(B)])
+    data = (data + rng.normal(0, noise, data.shape)).astype(np.float32)
+    mr, mi = template_spectrum(model)
+    out = {}
+    for dev, dt in ((cuda, torch.float32), (torch.device("cpu"),
+                                            torch.float64)):
+        def t(a):
+            return torch.as_tensor(a, dtype=dt, device=dev)
+        res = fit_portrait_full_batch(
+            torch.from_numpy(data).to(dev), (mr, mi), t(np.zeros((B, 5))),
+            t(np.full(B, P)), t(freqs), t(np.full((B, nchan), noise)),
+            nu_fits=t(np.full((B, 3), nu_fit)), dtype=dt)
+        out[dev.type] = res
+    g, c = out["cuda"], out["cpu"]
+    assert bool(g.return_code.lt(3).all())
+    # f32 on the card vs the f64 CPU twin route: within 1e-2 sigma
+    for j in (0, 1):
+        d = (g.params[:, j].double().cpu() - c.params[:, j]).abs()
+        assert bool((d <= 1e-2 * c.param_errs[:, j]).all()), (j, d)
+    # TF32 matmuls would cost the seed and the Newton steps precision
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            fit_portrait_full_batch(
+                torch.from_numpy(data).to(cuda), (mr, mi),
+                torch.zeros((B, 5), device=cuda),
+                torch.full((B,), P, device=cuda),
+                torch.as_tensor(freqs, dtype=torch.float32, device=cuda),
+                torch.full((B, nchan), noise, device=cuda))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
