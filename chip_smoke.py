@@ -3,27 +3,43 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/, then:
+Builds the port's CUDA kernels from csrc/ (one nvcc per source, in
+parallel), then:
   1. prints the card (nvidia-smi name, power limit), torch/CUDA versions
      and the kernel build time;
   2. holds each kernel against its plain torch twin on the card at 4096
      channels x 2048 bins (setup B=4: capped nh=128 with K=2 seed sums,
-     full band nh=1025, int16+scale; moments B=32, phases in [-3, 3]
-     turns) and times both; the setup's error must also stay within 4x
-     of a cuBLAS float32 DFT-as-GEMM's, below a TF32-input GEMM's;
-  3. runs the batched (phi, DM) fit at 4096 x 2048, B=64, capped and full
+     full band nh=1025, int16+scale; phase moments B=32, phases in
+     [-3, 3] turns) and times both; the setup's error must also stay
+     within 4x of a cuBLAS float32 DFT-as-GEMM's, below a TF32-input
+     GEMM's;
+  3. the scattering-moments kernel against its float64 twin at B=32,
+     nh=128 and 1025, phases in [-3, 3] turns, taus around
+     8e-3 (nu/1500)^-4 rot over two decades: each of the 9 sums within
+     2e-6 of sum_k |summand_k|; kernel and plain float32 times;
+  4. runs the batched (phi, DM) fit at 4096 x 2048, B=64, capped and full
      band, on bench.py's data recipe generated on the card from a seeded
      torch.Generator: every item converged, |phi - phi_inj| <= 5 sigma,
      and the card's float32 kernel route agrees with the float64 twin
      route on the CPU within 0.01 sigma on a subset; prints fits/s;
-  4. runs the pipeline a user runs (GetTOAs(..., device="cuda")) on two
+  5. the scattering fit (phi, DM, tau, alpha), log10 tau, at 4096 x 2048,
+     B=32, capped and full band, on scripts/tpu_scaling.py's --scat recipe
+     generated on the card: every item converged, phi, DM, log10 tau at
+     1500 MHz and alpha within 5 sigma of the injection, the batch-mean
+     tau at 1500 MHz within 1.2% of 8e-3 rot, the card route within 0.01
+     sigma of the float64 twin route on the CPU on 2 items; fits/s;
+  6. runs the pipeline a user runs (GetTOAs(..., device="cuda")) on two
      int16 PSRFITS archives x 8 subints at 4096 x 2048 written here, with
      a float32 noiseless template: TOA count and injected dDM within 3
-     sigma.
-Launch counts are reset before the pipeline (the main path) and read
-after it; every kernel must have launched there.  The line before last is
-a JSON summary of the kernels; the last is {"ok": true, "device": ...}.
-Exits non-zero without a card, or when any phase fails.
+     sigma;
+  7. the same with get_TOAs(fit_scat=True) on two scattered archives x 4
+     subints (the template unscattered): TOA count, scat_time within 3
+     sigma of the injection at scat_ref_freq, injected dDM within 3 sigma.
+Launch counts are reset before each pipeline run (the main paths) and
+read after it; every kernel of that path must have launched there.  The
+line before last is a JSON summary of the kernels (times, the bound from
+this run's shapes, the library call's time); the last is {"ok": true,
+"device": ...}.  Exits non-zero without a card, or when any phase fails.
 """
 
 import json
@@ -38,6 +54,14 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(HERE, "build", "chip_smoke")
 NCHAN, NBIN, P, NOISE = 4096, 2048, 0.003, 0.1
+# one H100 SXM (NVIDIA data sheet, at a 700 W limit): HBM bytes/s and
+# float32 operations/s outside the tensor cores
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# float32 operations per harmonic in csrc/moments.cu and
+# csrc/scat_moments.cu (adds and multiplies; sincosf, rintf and the
+# division counted as one each, so the bound stays a lower bound)
+PHASE_OPS, SCAT_OPS = 19, 85
+TAU0, ALPHA0 = 8e-3, -4.0     # [rot] at 1500 MHz (scripts/tpu_scaling.py)
 
 
 def log(*a):
@@ -49,6 +73,27 @@ def card_line():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def bound_ms(nbytes, nops):
+    """(least ms, "bytes" or "operations"): bytes over the HBM rate or
+    float32 operations over the peak rate, whichever is longer."""
+    tb, to = nbytes / PEAK_BYTES * 1e3, nops / PEAK_F32 * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def setup_bound(B, nbin, nh, K, x_itemsize, scaled):
+    """fused_setup: x read once, model spectrum, weights and scales read,
+    Gr/Gi, sd and the K seed sums written; the least operations the
+    function needs, an FFT's 2.5 nbin log2(nbin) per row (the kernel's
+    DFT does 4 nbin nh), plus Parseval, cross-spectrum and seed sums."""
+    rows = B * NCHAN
+    nbytes = (rows * nbin * x_itemsize + NCHAN * nh * 8 + rows * K * 4 +
+              (rows * 4 if scaled else 0) + rows * nh * 8 + rows * 4 +
+              B * K * nh * 8)
+    nops = rows * (2.5 * nbin * math.log2(nbin) + 3 * nbin + 6 * nh +
+                   4 * K * nh)
+    return bound_ms(nbytes, nops)
 
 
 def cuda_ms(fn, reps=10, warm=2):
@@ -92,6 +137,69 @@ def shifted_data(mft, shifts, gen, noise, dev):
     return torch.cat(out)
 
 
+def template_routes(model):
+    """The template's split spectra (mr, mi), host float64: "capped", the
+    band-capped prefix (band_cap_model_ft), and "full_band"."""
+    import numpy as np
+
+    from pulseportraiture_tpu_torch.fitters.portrait import template_spectrum
+    from pulseportraiture_tpu_torch.ops import setup_dft as sdft
+    mf = np.fft.rfft(np.asarray(model, np.float64), axis=-1)
+    mr_c, mi_c, mh = sdft.band_cap_model_ft(mf.real, mf.imag, NBIN)
+    nh_c = sdft.cap_nharm(NBIN, mh)
+    return {"capped": (mr_c[:, :nh_c], mi_c[:, :nh_c]),
+            "full_band": template_spectrum(model)}
+
+
+def phidm_recipe(dev, B, seed=0):
+    """bench.py's (phi, DM) data on the card: bench_template shifted by
+    phi ~ U(-0.01, 0.01) rot and DM ~ U(-2e-4, 2e-4) at the band's mean
+    frequency, noise NOISE.  Returns (data (B, nchan, nbin) float32,
+    freqs float64, model, phis, dms, nu_fit)."""
+    import torch
+
+    from pulseportraiture_tpu_torch.config import DCONST
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device=dev)
+    freqs = torch.linspace(1100.0, 1900.0, NCHAN, **f64)
+    model = bench_template(freqs.cpu().numpy())
+    nu_fit = float(freqs.mean())
+    phis = torch.rand(B, generator=gen, **f64) * 0.02 - 0.01
+    dms = torch.rand(B, generator=gen, **f64) * 4e-4 - 2e-4
+    shifts = phis[:, None] + DCONST * dms[:, None] / P * (
+        freqs[None, :] ** -2 - nu_fit ** -2)
+    mft = torch.fft.rfft(torch.as_tensor(model, **f64), dim=-1)
+    data = shifted_data(mft, shifts, gen, NOISE, dev)
+    return data, freqs, model, phis, dms, nu_fit
+
+
+def scat_recipe(dev, B, seed=3):
+    """scripts/tpu_scaling.py's --scat data on the card: a Gaussian at
+    phase 0.4, width 0.02, spectral index -1.5, scattered by TAU0 rot at
+    1500 MHz with index ALPHA0, noise NOISE.  Returns (data (B, nchan,
+    nbin) float32, freqs float64, model (nchan, nbin) float64)."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu_torch.ops.scattering import \
+        scattering_portrait_FT
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    freqs = torch.linspace(1100.0, 1900.0, NCHAN, dtype=torch.float64,
+                           device=dev)
+    x = (np.arange(NBIN) + 0.5) / NBIN
+    prof = np.exp(-0.5 * ((x - 0.4) / 0.02) ** 2)
+    model = prof[None] * (freqs.cpu().numpy()[:, None] / 1500.0) ** -1.5
+    mft = torch.fft.rfft(torch.as_tensor(model, device=dev), dim=-1)
+    scat = torch.fft.irfft(mft * scattering_portrait_FT(
+        TAU0 * (freqs / 1500.0) ** ALPHA0, NBIN), n=NBIN, dim=-1)
+    data = torch.empty((B, NCHAN, NBIN), dtype=torch.float32, device=dev)
+    for i in range(0, B, 8):
+        noise = torch.randn((min(8, B - i), NCHAN, NBIN), generator=gen,
+                            dtype=torch.float64, device=dev)
+        data[i:i + 8] = (scat + NOISE * noise).to(torch.float32)
+    return data, freqs, model
+
+
 def tf32_round(t):
     """Round float32 values to TF32's 10-bit mantissa (half away from 0)."""
     import torch
@@ -99,20 +207,26 @@ def tf32_round(t):
     return ((i + 0x1000) & -0x2000).view(torch.float32)
 
 
-def gemm_cross_spectrum(xx, mr, mi, sc, tf32_inputs=False):
-    """(Gr, Gi) from a cuBLAS float32 DFT-as-GEMM: the accuracy class the
-    setup kernel must meet.  With tf32_inputs the data and trig matrix
-    are first rounded to TF32, the class the kernel must beat."""
+def dft_matrix(nh, dev):
+    """(NBIN, 2 nh) float32 [cos | -sin] of the first nh harmonics."""
+    import torch
+    j = torch.arange(NBIN, dtype=torch.int64, device=dev)
+    k = torch.arange(nh, dtype=torch.int64, device=dev)
+    ang = torch.remainder(j[:, None] * k[None, :], NBIN).double() * (
+        2.0 * math.pi / NBIN)
+    return torch.cat([torch.cos(ang), -torch.sin(ang)], dim=1).float()
+
+
+def gemm_cross_spectrum(xx, E, mr, mi, sc, tf32_inputs=False):
+    """(Gr, Gi) from a cuBLAS float32 DFT-as-GEMM against E =
+    dft_matrix(nh): the accuracy class the setup kernel must meet, and
+    its library call.  With tf32_inputs the data and trig matrix are
+    first rounded to TF32, the class the kernel must beat."""
     import torch
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("the float32 GEMM reference needs "
                              "allow_tf32 = False")
     nh = mr.shape[-1]
-    j = torch.arange(NBIN, dtype=torch.int64, device=xx.device)
-    k = torch.arange(nh, dtype=torch.int64, device=xx.device)
-    ang = torch.remainder(j[:, None] * k[None, :], NBIN).double() * (
-        2.0 * math.pi / NBIN)
-    E = torch.cat([torch.cos(ang), -torch.sin(ang)], dim=1).float()
     xf = xx.float()
     if tf32_inputs:
         xf, E = tf32_round(xf), tf32_round(E)
@@ -132,9 +246,9 @@ def phase_kernels(dev, rng):
     import numpy as np
     import torch
 
+    from pulseportraiture_tpu_torch.io.native import quantize_i2
     from pulseportraiture_tpu_torch.ops import moments as mom
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
-    from pulseportraiture_tpu.io.native import quantize_i2
 
     freqs = np.linspace(1100.0, 1900.0, NCHAN)
     model = bench_template(freqs)
@@ -184,8 +298,9 @@ def phase_kernels(dev, rng):
         # The DFT must be float32-class: within 4x of a cuBLAS float32
         # GEMM's error on the same inputs, a bound a TF32 DFT must exceed.
         e_cls = {}
+        E = dft_matrix(mr.shape[-1], dev)
         for cls, tf in (("f32", False), ("tf32", True)):
-            g = gemm_cross_spectrum(xx, mr_t, mi_t, sc, tf32_inputs=tf)
+            g = gemm_cross_spectrum(xx, E, mr_t, mi_t, sc, tf32_inputs=tf)
             e_cls[cls] = max(float((a.double() - r).abs().max())
                              for a, r in zip(g, ref[:2]))
             del g
@@ -200,9 +315,14 @@ def phase_kernels(dev, rng):
                                               scale=sc))
         plain = cuda_ms(lambda: sdft.fused_setup_reference(
             xx, mr_t, mi_t, w=wt, scale=sc))
-        log(f"setup[{name}] kernel {ms:.4f} ms, plain {plain:.4f} ms "
-            f"(B={B})")
-        rec[name] = dict(max_abs_err=max(errs[:2]), ms=ms, plain_ms=plain)
+        lib = cuda_ms(lambda: gemm_cross_spectrum(xx, E, mr_t, mi_t, sc))
+        bnd, by = setup_bound(B, NBIN, mr.shape[-1], 2, xx.element_size(),
+                              sc is not None)
+        log(f"setup[{name}] kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"float32 GEMM library call {lib:.4f} ms, bound {bnd:.4f} ms "
+            f"({by}) (B={B})")
+        rec[name] = dict(max_abs_err=max(errs[:2]), ms=ms, plain_ms=plain,
+                         library_ms=lib, bound_ms=bnd, bound_by=by)
 
     Bm = 32
     for name, nh in (("capped", nh_c), ("full_band", NBIN // 2 + 1)):
@@ -227,44 +347,89 @@ def phase_kernels(dev, rng):
                 raise AssertionError(f"moments[{name}] term {p_} disagrees")
         ms = cuda_ms(lambda: mom.phase_moments(phis, Gr, Gi))
         plain = cuda_ms(lambda: mom.phase_moments_reference(phis, Gr, Gi))
+        rows = Bm * NCHAN
+        bnd, by = bound_ms(rows * nh * 8 + rows * 4 + 3 * rows * 4,
+                           rows * nh * PHASE_OPS)
         log(f"moments[{name}] nh={nh} max abs err C/Cp/Cpp {errs}; kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms (B={Bm})")
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}) "
+            f"(B={Bm})")
         rec["moments_" + name] = dict(max_abs_err=errs[0], ms=ms,
-                                      plain_ms=plain,
-                                      max_abs_err_all=errs)
+                                      plain_ms=plain, bound_ms=bnd,
+                                      bound_by=by, max_abs_err_all=errs)
+        del Gr, Gi
+    return rec
+
+
+def phase_scat_kernel(dev):
+    """The scattering-moments kernel against its float64 twin on the
+    card at B=32, 4096 channels, nh=128 (capped) and 1025 (full band)."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu_torch.fitters.stats import SCAT_NAMES
+    from pulseportraiture_tpu_torch.ops import moments as mom
+
+    Bm = 32
+    gen = torch.Generator(device=dev).manual_seed(2)
+    f32 = dict(dtype=torch.float32, device=dev, generator=gen)
+    freqs = torch.linspace(1100.0, 1900.0, NCHAN, device=dev)
+    mf = np.fft.rfft(bench_template(freqs.cpu().numpy()).astype(np.float64),
+                     axis=-1)
+    rec = {}
+    for name, nh in (("capped", 128), ("full_band", NBIN // 2 + 1)):
+        Gr = torch.randn((Bm, NCHAN, nh), **f32)
+        Gi = torch.randn((Bm, NCHAN, nh), **f32)
+        M2 = torch.as_tensor(np.abs(mf[:, :nh]) ** 2, dtype=torch.float32,
+                             device=dev)
+        phis = 6.0 * torch.rand((Bm, NCHAN), **f32) - 3.0
+        taus = TAU0 * (freqs / 1500.0) ** ALPHA0 * 10.0 ** (
+            2.0 * torch.rand((Bm, NCHAN), **f32) - 1.0)
+        got = mom.scattering_moments(phis, taus, Gr, Gi, M2)
+        torch.cuda.synchronize()
+        errs = [0.0] * 9
+        for i in range(0, Bm, 4):           # the float64 twin, 4 at a time
+            sl = slice(i, i + 4)
+            args = [a.double() for a in (phis[sl], taus[sl], Gr[sl], Gi[sl],
+                                         M2)]
+            ref = mom.scattering_moments_reference(*args)
+            scale = mom.scattering_moments_reference(*args, absolute=True)
+            for j, (g, r, b) in enumerate(zip(got, ref, scale)):
+                e = (g[sl].double() - r).abs()
+                errs[j] = max(errs[j], float(e.max()))
+                if bool((e > 2e-6 * b).any()):
+                    raise AssertionError(f"scattering_moments[{name}] "
+                                         f"{SCAT_NAMES[j]} disagrees")
+            del args, ref, scale
+        ms = cuda_ms(lambda: mom.scattering_moments(phis, taus, Gr, Gi, M2))
+        plain = cuda_ms(lambda: mom.scattering_moments_reference(
+            phis, taus, Gr, Gi, M2))
+        rows = Bm * NCHAN
+        bnd, by = bound_ms(rows * nh * 8 + NCHAN * nh * 4 + rows * 8 +
+                           9 * rows * 4, rows * nh * SCAT_OPS)
+        log(f"scattering_moments[{name}] nh={nh} max abs err "
+            f"{dict(zip(SCAT_NAMES, errs))}; kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}) (B={Bm})")
+        rec[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain,
+                         bound_ms=bnd, bound_by=by,
+                         max_abs_err_all=errs)
         del Gr, Gi
     return rec
 
 
 def phase_fit(dev):
     """Batched fits at 4096 x 2048, B=64, capped and full band."""
-    import numpy as np
     import torch
 
-    from pulseportraiture_tpu.config import DCONST
-    from pulseportraiture_tpu_torch.fitters.portrait import (
-        fit_portrait_full_batch, template_spectrum)
+    from pulseportraiture_tpu_torch.config import DCONST
+    from pulseportraiture_tpu_torch.fitters.portrait import \
+        fit_portrait_full_batch
     from pulseportraiture_tpu_torch.ops import moments as mom
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
     from pulseportraiture_tpu_torch.ops.transform import phase_transform
 
     B = 64
-    gen = torch.Generator(device=dev).manual_seed(0)
-    f64 = dict(dtype=torch.float64, device=dev)
-    freqs = torch.linspace(1100.0, 1900.0, NCHAN, **f64)
-    model = bench_template(freqs.cpu().numpy())
-    nu_fit = float(freqs.mean())
-    phis = torch.rand(B, generator=gen, **f64) * 0.02 - 0.01
-    dms = torch.rand(B, generator=gen, **f64) * 4e-4 - 2e-4
-    shifts = phis[:, None] + DCONST * dms[:, None] / P * (
-        freqs[None, :] ** -2 - nu_fit ** -2)
-    mft = torch.fft.rfft(torch.as_tensor(model, **f64), dim=-1)
-    data = shifted_data(mft, shifts, gen, NOISE, dev)
-    mf = np.fft.rfft(model.astype(np.float64), axis=-1)
-    mr_c, mi_c, mh = sdft.band_cap_model_ft(mf.real, mf.imag, NBIN)
-    nh_c = sdft.cap_nharm(NBIN, mh)
-    routes = {"capped": (mr_c[:, :nh_c], mi_c[:, :nh_c]),
-              "full_band": template_spectrum(model)}
+    data, freqs, model, phis, dms, nu_fit = phidm_recipe(dev, B)
+    routes = template_routes(model)
 
     def args(d, dt, n):
         t = dict(dtype=dt, device=d)
@@ -336,20 +501,126 @@ def phase_fit(dev):
     return out
 
 
-def write_archives(rng):
-    """Two int16 archives x 8 subints + a float32 noiseless template."""
+def phase_scat_fit(dev):
+    """The scattering fit at 4096 x 2048, B=32, capped and full band, on
+    scripts/tpu_scaling.py's --scat recipe (a Gaussian at phase 0.4,
+    width 0.02, index -1.5; tau 8e-3 rot at 1500 MHz, alpha -4; noise
+    0.1; start log10 tau = log10(4e-3), alpha = -4)."""
+    import torch
+
+    from pulseportraiture_tpu_torch.fitters.portrait import \
+        fit_portrait_full_batch
+    from pulseportraiture_tpu_torch.ops import moments as mom
+    from pulseportraiture_tpu_torch.ops.transform import phase_transform
+
+    B, ff = 32, (1, 1, 0, 1, 1)
+    data, freqs, model = scat_recipe(dev, B)
+    routes = template_routes(model)
+    nu_fit = float(freqs.mean())
+
+    def args(d, dt, n):
+        t = dict(dtype=dt, device=d)
+        init = torch.zeros((n, 5), **t)
+        init[:, 3], init[:, 4] = math.log10(0.5 * TAU0), ALPHA0
+        return (init, torch.full((n,), P, **t), freqs.to(**t),
+                torch.full((n, NCHAN), NOISE, **t))
+
+    def at_refs(p, nu_DM, nu_tau, to_DM, to_tau):
+        """(phi, DM, log10 tau, alpha) moved to other references."""
+        p = p.double().clone()
+        p[:, 0] = phase_transform(p[:, 0], p[:, 1], nu_DM, to_DM, P)
+        p[:, 3] = p[:, 3] + p[:, 4] * torch.log10(to_tau / nu_tau)
+        return p
+
+    out = {}
+    sm0 = mom.scattering_moments.launches
+    for name, mft_ri in routes.items():
+        def run():
+            return fit_portrait_full_batch(
+                data, mft_ri, *args(dev, torch.float32, B), fit_flags=ff,
+                log10_tau=True, dtype=torch.float32)
+        res = run()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        sec = statistics.median(times)
+        rc = res.return_code.cpu()
+        if not bool((rc < 3).all()):
+            raise AssertionError(f"scat fit[{name}] not converged: {rc}")
+        p, e = res.params.double(), res.param_errs.double()
+        nu_tau = res.nu_tau.double()
+        lr = torch.log10(1500.0 / nu_tau)
+        x1500 = p[:, 3] + p[:, 4] * lr
+        # tau and alpha do not covary at nu_tau
+        s1500 = torch.sqrt(e[:, 3] ** 2 + (e[:, 4] * lr) ** 2)
+        z = {"phi": (p[:, 0] / e[:, 0]).abs().max().item(),
+             "DM": (p[:, 1] / e[:, 1]).abs().max().item(),
+             "log10 tau_1500": ((x1500 - math.log10(TAU0)) /
+                                s1500).abs().max().item(),
+             "alpha": ((p[:, 4] - ALPHA0) / e[:, 4]).abs().max().item()}
+        tau_mean = float((10.0 ** x1500).mean())
+        if max(z.values()) > 5:
+            raise AssertionError(f"scat fit[{name}] off the injection: {z}")
+        if abs(tau_mean / TAU0 - 1.0) > 0.012:
+            raise AssertionError(f"scat fit[{name}] mean tau_1500 "
+                                 f"{tau_mean} not within 1.2% of {TAU0}")
+        # 2 items through the float64 twin route on the CPU, compared at
+        # the twin's references
+        nc = 2
+        cpu = torch.device("cpu")
+        ref = fit_portrait_full_batch(
+            data[:nc].cpu(), mft_ri, *args(cpu, torch.float64, nc),
+            fit_flags=ff, log10_tau=True, dtype=torch.float64)
+        pc = at_refs(p[:nc].cpu(), res.nu_DM[:nc].double().cpu(),
+                     nu_tau[:nc].cpu(), ref.nu_DM, ref.nu_tau)
+        agree = float(((pc - ref.params)[:, [0, 1, 3, 4]] /
+                       ref.param_errs[:, [0, 1, 3, 4]]).abs().max())
+        mean_niter = float(res.niter.double().mean())
+        log(f"scat fit[{name}] B={B} nh={mft_ri[0].shape[-1]}: "
+            f"{B / sec:.2f} fits/s ({sec * 1e3:.2f} ms/batch, median of 3), "
+            f"mean niter {mean_niter}, max |z| {z}, mean tau_1500 "
+            f"{tau_mean:.6e} ({(tau_mean / TAU0 - 1) * 100:+.3f}%), mean "
+            f"alpha {float(p[:, 4].mean()):.4f}, card route vs f64 twin "
+            f"route {agree:.2e} sigma")
+        if agree > 1e-2:
+            raise AssertionError(f"scat fit[{name}] kernel route vs f64 "
+                                 f"twin route: {agree:.3e} sigma > 0.01")
+        out[name] = dict(fits_per_s=B / sec, sec_per_batch=sec,
+                         mean_niter=mean_niter, twin_sigma=agree,
+                         tau_1500_mean=tau_mean, max_z=z)
+    launches = mom.scattering_moments.launches - sm0
+    log(f"scattering-fit phase launches: scattering_moments {launches}")
+    if launches <= 0:
+        raise AssertionError("scattering_moments did not launch")
+    return out
+
+
+def write_archives(rng, nsub=8, t_scat=0.0, tag="epoch"):
+    """Two int16 archives x nsub subints (scattered by t_scat [s] at 1500
+    MHz, index -4, when t_scat > 0) + a float32 noiseless template."""
     import numpy as np
 
-    from pulseportraiture_tpu.config import DCONST
-    from pulseportraiture_tpu.io.mjd import MJD
-    from pulseportraiture_tpu.io.psrfits import Archive, write_psrfits
+    from pulseportraiture_tpu_torch.config import DCONST
+    from pulseportraiture_tpu_torch.io.mjd import MJD
+    from pulseportraiture_tpu_torch.io.psrfits import Archive, write_psrfits
+    from pulseportraiture_tpu_torch.ops.scattering import \
+        scattering_portrait_FT_np
 
     os.makedirs(WORK, exist_ok=True)
-    nsub, nu0, bw, DM = 8, 1500.0, 800.0, 30.0
+    nu0, bw, DM = 1500.0, 800.0, 30.0
     cw = bw / NCHAN
     freqs = np.linspace(nu0 - bw / 2 + cw / 2, nu0 + bw / 2 - cw / 2, NCHAN)
     model = bench_template(freqs).astype(np.float64)
     mft = np.fft.rfft(model, axis=-1)
+    if t_scat:
+        mft_d = mft * scattering_portrait_FT_np(
+            t_scat / P * (freqs / nu0) ** ALPHA0, NBIN)
+    else:
+        mft_d = mft
     k = np.arange(NBIN // 2 + 1)
     inv2 = freqs ** -2.0 - nu0 ** -2.0
 
@@ -373,22 +644,36 @@ def write_archives(rng):
             phase = rng.uniform(-0.2, 0.2)
             phis = -phase - DCONST * (DM + dDM) / P * inv2
             theta = np.mod(phis[:, None] * k, 1.0) * (2.0 * np.pi)
-            data[i, 0] = np.fft.irfft(mft * np.exp(1j * theta), n=NBIN,
+            data[i, 0] = np.fft.irfft(mft_d * np.exp(1j * theta), n=NBIN,
                                       axis=-1)
         data += rng.normal(0.0, NOISE, data.shape)
-        path = os.path.join(WORK, f"epoch{ia}.fits")
+        path = os.path.join(WORK, f"{tag}{ia}.fits")
         write_psrfits(path, arch(data, DM, ia + 1), dtype="i2")
         files.append(path)
     return files, dDMs, tmpl
 
 
-def phase_pipeline(rng):
-    """GetTOAs on the card; returns (launch counts, mharms)."""
-    import numpy as np
-
-    from pulseportraiture_tpu.io.tim import write_TOAs
+def reset_launches():
     from pulseportraiture_tpu_torch.ops import moments as mom
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
+    sdft.fused_setup.launches = 0
+    mom.phase_moments.launches = 0
+    mom.scattering_moments.launches = 0
+
+
+def read_launches():
+    from pulseportraiture_tpu_torch.ops import moments as mom
+    from pulseportraiture_tpu_torch.ops import setup_dft as sdft
+    return {"fused_setup": sdft.fused_setup.launches,
+            "phase_moments": mom.phase_moments.launches,
+            "scattering_moments": mom.scattering_moments.launches}
+
+
+def phase_pipeline(rng):
+    """GetTOAs on the card; returns the launch counts of its run."""
+    import numpy as np
+
+    from pulseportraiture_tpu_torch.io.tim import write_TOAs
     from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
 
     t0 = time.perf_counter()
@@ -397,13 +682,11 @@ def phase_pipeline(rng):
         f"{time.perf_counter() - t0:.2f} s")
     gt = GetTOAs(files, tmpl, device="cuda", quiet=True)
     # the main path: every launch count from 0, read right after
-    sdft.fused_setup.launches = 0
-    mom.phase_moments.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     gt.get_TOAs(quiet=True)
     wall = time.perf_counter() - t0
-    launches = {"fused_setup": sdft.fused_setup.launches,
-                "phase_moments": mom.phase_moments.launches}
+    launches = read_launches()
     tim = os.path.join(WORK, "smoke.tim")
     lines = write_TOAs(gt.TOA_list, outfile=tim, append=False)
     log(f"pipeline: {len(lines)} TOAs in {wall:.2f} s "
@@ -420,9 +703,57 @@ def phase_pipeline(rng):
         raise AssertionError("injected dDM not recovered within 3 sigma")
     if not gt.mharms or min(gt.mharms) <= 0:
         raise AssertionError(f"the f32 template did not cap: {gt.mharms}")
-    if min(launches.values()) <= 0:
+    if min(launches["fused_setup"], launches["phase_moments"]) <= 0:
         raise AssertionError(f"a kernel did not launch on the main path: "
                              f"{launches}")
+    return launches
+
+
+def phase_pipeline_scat(rng):
+    """GetTOAs(fit_scat=True) on the card; returns its launch counts."""
+    import numpy as np
+
+    from pulseportraiture_tpu_torch.io.tim import write_TOAs
+    from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
+
+    t_scat = TAU0 * P                         # [s] at 1500 MHz
+    t0 = time.perf_counter()
+    files, dDMs, tmpl = write_archives(rng, nsub=4, t_scat=t_scat,
+                                       tag="scat")
+    log(f"scat pipeline: wrote 2 x 4 x {NCHAN} x {NBIN} scattered int16 "
+        f"archives in {time.perf_counter() - t0:.2f} s")
+    gt = GetTOAs(files, tmpl, device="cuda", quiet=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    gt.get_TOAs(quiet=True, fit_scat=True)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    lines = write_TOAs(gt.TOA_list, outfile=os.path.join(WORK, "scat.tim"),
+                       append=False)
+    log(f"scat pipeline: {len(lines)} TOAs in {wall:.2f} s (timing "
+        f"{json.dumps(gt.fit_timing)}); launches {launches}")
+    log("scat pipeline: " + lines[0])
+    if len(lines) != 8:
+        raise AssertionError(f"expected 8 TOAs, got {len(lines)}")
+    zs = []
+    for t in gt.TOA_list:
+        f = t.flags
+        inj = t_scat * (f["scat_ref_freq"] / 1500.0) ** ALPHA0
+        zs.append((math.log10(f["scat_time"] * 1e-6) - math.log10(inj)) /
+                  f["log10_scat_time_err"])
+    log(f"scat pipeline: scat_time vs injection at scat_ref_freq, "
+        f"sigma: {[round(z, 3) for z in zs]}")
+    if max(abs(z) for z in zs) > 3:
+        raise AssertionError("scat_time not within 3 sigma of the injection")
+    rec = np.asarray(gt.DeltaDM_means)
+    err = np.asarray(gt.DeltaDM_errs)
+    log(f"scat pipeline: DeltaDM {rec.tolist()} +- {err.tolist()}, "
+        f"injected {dDMs}")
+    if not np.all(np.abs(rec - dDMs) <= 3 * err):
+        raise AssertionError("injected dDM not recovered within 3 sigma")
+    if min(launches["fused_setup"], launches["scattering_moments"]) <= 0:
+        raise AssertionError(f"a kernel did not launch on the fit_scat "
+                             f"path: {launches}")
     return launches
 
 
@@ -448,29 +779,42 @@ def main():
             log("ptxas: " + line.strip())
     rng = np.random.default_rng(0)
     krec = phase_kernels(dev, rng)
+    srec = phase_scat_kernel(dev)
     fits = phase_fit(dev)
+    scat_fits = phase_scat_fit(dev)
     try:
-        launches = phase_pipeline(rng)
+        paths = {"pipeline": phase_pipeline(rng),
+                 "pipeline_fit_scat": phase_pipeline_scat(rng)}
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+
+    def entry(name, source, replaces, also, rec, extra):
+        by_path = {p: c[name] for p, c in paths.items()}
+        return dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            also_replaces=also, launches=sum(by_path.values()),
+            launches_by_path=by_path, max_abs_err=rec["max_abs_err"],
+            ms=rec["ms"], plain_ms=rec["plain_ms"],
+            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+            library_ms=rec.get("library_ms"), **extra)
+
+    tpu = "pulseportraiture_tpu/ops/"
     summary = {"kernels": [
-        {"name": "fused_setup", "route": "cuda",
-         "source": "pulseportraiture_tpu_torch/csrc/setup.cu",
-         "replaces": "pulseportraiture_tpu/ops/ct_dft.py:430",
-         "also_replaces": "pulseportraiture_tpu/ops/ct_dft.py:804",
-         "launches": launches["fused_setup"],
-         "max_abs_err": krec["capped"]["max_abs_err"],
-         "ms": krec["capped"]["ms"], "plain_ms": krec["capped"]["plain_ms"],
-         "full_band": krec["full_band"], "i16": krec["i16"]},
-        {"name": "phase_moments", "route": "cuda",
-         "source": "pulseportraiture_tpu_torch/csrc/moments.cu",
-         "replaces": "pulseportraiture_tpu/ops/pallas_moments.py:323",
-         "launches": launches["phase_moments"],
-         "max_abs_err": krec["moments_capped"]["max_abs_err"],
-         "ms": krec["moments_capped"]["ms"],
-         "plain_ms": krec["moments_capped"]["plain_ms"],
-         "full_band": krec["moments_full_band"]}],
-        "fits": fits}
+        entry("fused_setup", "pulseportraiture_tpu_torch/csrc/setup.cu",
+              tpu + "ct_dft.py:430", [tpu + "ct_dft.py:804"],
+              krec["capped"], {"full_band": krec["full_band"],
+                               "i16": krec["i16"]}),
+        entry("phase_moments", "pulseportraiture_tpu_torch/csrc/moments.cu",
+              tpu + "pallas_moments.py:323",
+              [tpu + "pallas_moments.py:262", tpu + "pallas_moments.py:186"],
+              krec["moments_capped"],
+              {"full_band": krec["moments_full_band"]}),
+        entry("scattering_moments",
+              "pulseportraiture_tpu_torch/csrc/scat_moments.cu",
+              tpu + "pallas_moments.py:805",
+              [tpu + "pallas_moments.py:748", tpu + "pallas_moments.py:635"],
+              srec["capped"], {"full_band": srec["full_band"]})],
+        "fits": fits, "scattering_fits": scat_fits}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,14 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-The sources compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes: no PyTorch headers, so a build takes
-seconds.  The library lands in <checkout>/build/pp_kernels/, named by a
-hash of the sources and flags, at first use; a later process reuses it.
-Nothing is imported or built while a module is imported.
+Each source compiles with its own nvcc, all started together, and the
+objects link into one shared library with a plain C interface, loaded
+with ctypes: no PyTorch headers, so a build takes seconds.  The library
+lands in <checkout>/build/pp_kernels/, named by a hash of the sources,
+headers and flags, at first use; a later process reuses it.  Nothing is
+imported or built while a module is imported.
 
-Flags: sm_90a (Hopper), -O3, and no --use_fast_math: the moments kernel
-relies on precise sincosf and IEEE rounding (csrc/moments.cu).
+Flags: sm_90a (Hopper), -O3, and no --use_fast_math: the moments kernels
+rely on precise sincosf, IEEE division and rounding (csrc/phase_trig.cuh).
 """
 
 from __future__ import annotations
@@ -21,9 +22,10 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-_SOURCES = ("setup.cu", "moments.cu")
+_SOURCES = ("setup.cu", "moments.cu", "scat_moments.cu")
+_HEADERS = ("phase_trig.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+          "-Xcompiler", "-fPIC", "-Xptxas=-v")
 BUILD_DIR = _PKG.parent / "build" / "pp_kernels"
 
 _lib = None
@@ -50,6 +52,9 @@ def _declare(lib):
                                    vp, vp, vp, vp, vp, vp, i32, i32, i32,
                                    i32, i32, vp]
     lib.pp_fused_setup.restype = i32
+    lib.pp_scat_moments.argtypes = [vp, vp, vp, vp, vp, vp, i64, i64, i32,
+                                    vp]
+    lib.pp_scat_moments.restype = i32
     lib.pp_error_string.argtypes = [i32]
     lib.pp_error_string.restype = ctypes.c_char_p
     return lib
@@ -60,10 +65,11 @@ def load_kernels():
     global _lib
     if _lib is not None:
         return _lib
-    srcs = [_PKG / "csrc" / s for s in _SOURCES]
+    csrc = _PKG / "csrc"
     h = hashlib.sha256()
-    for s in srcs:
-        h.update(s.read_bytes())
+    for name in _SOURCES + _HEADERS:
+        h.update(name.encode())
+        h.update((csrc / name).read_bytes())
     h.update(" ".join(_FLAGS).encode())
     out = BUILD_DIR / f"libpp_kernels_{h.hexdigest()[:16]}.so"
     t0 = time.perf_counter()
@@ -71,13 +77,31 @@ def load_kernels():
         build_info["cached"] = True
     else:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, srcs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_info["log"] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n" +
-                               build_info["log"])
+        tag = f"{os.getpid()}.tmp"
+        nvcc = _nvcc()
+        objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in _SOURCES]
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True))
+                 for cmd in ([nvcc, *_FLAGS, "-c", "-o", str(o),
+                              str(csrc / s)]
+                             for s, o in zip(_SOURCES, objs))]
+        logs, failed = [], []
+        for cmd, proc in procs:
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                failed.append(" ".join(cmd) + "\n" + logs[-1])
+        tmp = out.with_name(f"{out.name}.{tag}")
+        if not failed:
+            cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(" ".join(cmd) + "\n" + logs[-1])
+        for o in objs:
+            o.unlink(missing_ok=True)
+        build_info["log"] = "".join(logs)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         os.replace(tmp, out)
         build_info["cached"] = False
     _lib = _declare(ctypes.CDLL(str(out)))

@@ -12,24 +12,16 @@
 // Design: one warp per row; lanes stride over harmonics (coalesced, each
 // element read once), f32 accumulation, one warp-shuffle reduction.
 //
-// Numerics, chosen to match fitters/stats.py _phase_trig step for step:
-//   * built WITHOUT --use_fast_math: sincosf is the precise libdevice
-//     routine, never __sinf/__cosf;
-//   * rounding is rintf (half-to-even, like torch.round/jnp.round), never
-//     roundf (half-away);
-//   * the double-single steps use __fmul_rn/__fadd_rn/__fsub_rn so nvcc
-//     cannot contract them into FMAs;
-//   * hi = rint(8192 p)/8192 with |p| <= 1/2, so 8192*hi is an integer of
-//     at most 12 bits plus sign and hi*k is exact in f32 while
-//     |8192 hi| * k <= 2^24, i.e. k <= 4096.  nbin 4096 gives k <= 2048
-//     (2^23): exact.  The wrapper (ops/moments.py) refuses nharm > 4097.
+// Numerics: the double-single phasor of phase_trig.cuh (the steps of
+// fitters/stats.py _phase_trig; the wrapper refuses nharm > 4097).
 
 #include <cuda_runtime.h>
+
+#include "phase_trig.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;                       // rows per block
-constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr float kNegTwoPi = -6.28318530717958647692f;
 constexpr float kNegFourPi2 = -39.4784176043574344753f;
 
@@ -42,20 +34,14 @@ __global__ void phase_moments_kernel(const float* __restrict__ phis,
       static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const float phi = phis[row];
-  const float p = __fsub_rn(phi, rintf(phi));
-  const float hi = rintf(__fmul_rn(p, 8192.0f)) * (1.0f / 8192.0f);
-  const float lo = __fsub_rn(p, hi);
+  const pp::PhaseSplit ph = pp::phase_split(phis[row]);
   const float* a = gr + row * nh;
   const float* b = gi + row * nh;
   float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
   for (int k = lane; k < nh; k += 32) {
     const float kf = static_cast<float>(k);
-    const float prod = __fmul_rn(hi, kf);
-    const float frac = __fsub_rn(prod, rintf(prod));
-    const float ang = __fmul_rn(kTwoPi, __fadd_rn(frac, __fmul_rn(lo, kf)));
     float s, c;
-    sincosf(ang, &s, &c);
+    pp::phase_trig(ph, kf, &s, &c);
     const float x = a[k];
     const float y = b[k];
     const float zr = x * c - y * s;

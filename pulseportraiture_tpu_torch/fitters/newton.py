@@ -13,13 +13,34 @@ batched torch.linalg.eigh).  Carried over unchanged: the f32 acceptance
 floor 8 eps |f|, the radius shrink on a non-finite trial, the speculative
 final step bounded by the last verified step length, the step_mask
 projection and the status codes.
+
+Two additions, which bind in float32 only (float64 runs stop where the
+JAX package's stop):
+- the subproblem is solved in float64 whatever the working dtype
+  (_tr_solve);
+- the rounding-level stops (the relative gradient test 100 eps |g0|,
+  the sub-floor decrease 8 eps |f| and the speculative step) wait for
+  the Newton decrement g H^-1 g at the accepted point to be <= DEC_TOL,
+  or for a full (interior) step that failed to halve it (the floor that
+  the working precision of g and x sets).  Those stops are set by the
+  resolution of f and by the stiffest parameter, not by the parameters'
+  scales: in float32 they end a 4096-channel scattering fit several
+  sigma short of the optimum in tau and alpha.  The decrement is in f's
+  units, chi2 for the fits, so DEC_TOL bounds the distance to the
+  optimum, sqrt(DEC_TOL / 2) = 7e-4 sigma, whatever the scales.  Below
+  the resolution of f the ratio rho is noise, so after such a step the
+  radius is at least twice the Newton step: the item goes on by full
+  Newton steps, not by a radius-limited walk.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import torch
+
+DEC_TOL = 1e-6
 
 RCSTRINGS = {
     0: "Converged (gradient norm below tolerance)",
@@ -48,10 +69,16 @@ def _mv(A, v):
 def _tr_solve(g, H, radius):
     """Exact trust-region step: argmin g.p + 0.5 p H p, |p| <= radius.
 
-    Batched over leading axes.  Solved on a scale-normalized copy (H/s,
-    g/s with s = max|H|): same minimizer, and the secular iteration stays
-    conditioned for f32 objectives whose curvatures reach ~1e13.
+    Batched over leading axes.  Solved in float64 whatever the working
+    dtype, on a scale-normalized copy (H/s, g/s with s = max|H|): same
+    minimizer, and the secular iteration stays conditioned for
+    objectives whose curvatures reach ~1e13.  (A float32 eigh resolves
+    eigenvalues only to ~1e-7 of the largest: the fits' weakest
+    directions, alpha and tau, lie below that, and their steps come out
+    several times too short.)
     """
+    dtype = g.dtype
+    g, H, radius = g.double(), H.double(), radius.double()
     one = torch.ones((), dtype=H.dtype, device=H.device)
     s = torch.maximum(torch.amax(torch.abs(H), dim=(-2, -1)), one)
     g = g / s[..., None]
@@ -84,7 +111,23 @@ def _tr_solve(g, H, radius):
                                           max=1.0)[..., None]
     p_interior = -_mv(V, p_of(zero))
     p = torch.where(interior_ok[..., None], p_interior, p_boundary)
-    return p, ~interior_ok
+    return p.to(dtype), ~interior_ok
+
+
+def _newton_decrement(g, H, mask):
+    """(g H^-1 g, |H^-1 g|) of the full Newton step, (B,) float64: a
+    float64 Cholesky solve, which the parameters' scales do not
+    condition; inf where H is not positive definite."""
+    g64 = g.double()
+    L, info = torch.linalg.cholesky_ex(H.double())
+    p = torch.cholesky_solve(g64[..., None], L)[..., 0]
+    if mask is not None:
+        p = p * mask.double()
+    dec = torch.sum(g64 * p, dim=-1)
+    ok = (info == 0) & torch.isfinite(dec)
+    inf = torch.full_like(dec, math.inf)
+    return (torch.where(ok, dec, inf),
+            torch.where(ok, torch.sqrt(torch.sum(p * p, dim=-1)), inf))
 
 
 def _select(mask, a, b):
@@ -132,6 +175,7 @@ def trust_region_minimize(fgh: Callable, x0, max_iter: int = 100,
     status = torch.full((B,), 3, dtype=torch.int64, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     tiny = torch.full((), 1e-300, dtype=dtype, device=dev)  # 0 in f32
+    dec = torch.full((B,), math.inf, dtype=torch.float64, device=dev)
 
     while True:
         active = (~done) & (it < max_iter)
@@ -166,8 +210,18 @@ def trust_region_minimize(fgh: Callable, x0, max_iter: int = 100,
         g_n = _select(accept, g_new, g)
         H_n = _select(accept, H_new, H)
         aux_n = _select_aux(accept, out[3], aux) if has_aux else None
+        dec_n, newton_len = _newton_decrement(g_n, H_n, mask)
+        newton_len = newton_len.to(dtype)
+        stall = accept & ~hit & (dec_n > 0.5 * dec)
+        resolved = (dec_n <= DEC_TOL) | stall
+        # below the resolution of f rho cannot steer the radius: let an
+        # item that goes on take the full Newton step
+        radius_n = torch.where(
+            accept & tiny_pred & torch.isfinite(newton_len),
+            torch.clamp(torch.maximum(radius_n, 2.0 * newton_len),
+                        max=max_radius), radius_n)
         gnorm = torch.sqrt(torch.sum(g_n ** 2, dim=-1))
-        gconv = (gnorm < gtol) | (gnorm < gtol_rel * g0norm)
+        gconv = (gnorm < gtol) | ((gnorm < gtol_rel * g0norm) & resolved)
         xconv = accept & (pnorm < xtol)
         # speculative final step on the accepted point: when the next
         # subproblem's predicted decrease is below the resolution of f
@@ -180,11 +234,11 @@ def trust_region_minimize(fgh: Callable, x0, max_iter: int = 100,
                   0.5 * torch.sum(p2 * _mv(H_n, p2), dim=-1))
         below2 = (pred2 >= 0.0) & (pred2 <= 8.0 * feps * torch.abs(f_n)) & \
             (torch.sqrt(torch.sum(p2 ** 2, dim=-1)) <= pnorm)
-        spec = accept & below2
+        spec = accept & below2 & resolved
         x_n = _select(spec, x_n + p2, x_n)
         fconv = (accept & (ftol > 0.0) & (actual < ftol * torch.clamp(
-            torch.abs(f), min=1.0))) | (accept & tiny_pred & (pred > 0.0)) \
-            | spec
+            torch.abs(f), min=1.0))) | \
+            (accept & tiny_pred & (pred > 0.0) & resolved) | spec
         stalled = (~accept) & (radius_n < xtol)
         done_n = gconv | xconv | fconv | stalled
         status_n = torch.where(gconv, 0, torch.where(
@@ -197,6 +251,7 @@ def trust_region_minimize(fgh: Callable, x0, max_iter: int = 100,
         if has_aux:
             aux = _select_aux(active, aux_n, aux)
         radius = torch.where(active, radius_n, radius)
+        dec = torch.where(active, dec_n, dec)
         status = torch.where(active, status_n, status)
         done = torch.where(active, done_n, done)
         it = it + active.to(it.dtype)

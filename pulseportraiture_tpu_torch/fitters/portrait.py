@@ -1,11 +1,12 @@
-"""Batched wideband (phi, DM) portrait fit.
+"""Batched wideband portrait fit: (phi, DM) and the scattering fit.
 
 Port of pulseportraiture_tpu.fitters.portrait.fit_portrait_full_batch
 with one route: the shared template spectrum (capped or full band), the
 fused setup (ops.setup_dft: DFT, cross-spectrum, data power and the two
 stacked seed sums in one pass), the joint brute (phi, DM) seed, the
-batched trust-region Newton loop over the phase moments, then
-re-referencing to the zero-covariance frequency and the Woodbury
+batched trust-region Newton loop over the phase moments (tau and alpha
+fixed) or the scattering moments (tau, and alpha, fitted), then
+re-referencing to the zero-covariance frequencies and the Woodbury
 covariance.  Reference: pptoaslib.py:928-1096.
 """
 
@@ -17,8 +18,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pulseportraiture_tpu.config import DCONST, F0_FACT
+from pulseportraiture_tpu_torch.config import DCONST, F0_FACT
 from pulseportraiture_tpu_torch.fitters import newton, nu_zeros, stats
+from pulseportraiture_tpu_torch.ops.scattering import scattering_times
 from pulseportraiture_tpu_torch.ops.setup_dft import fused_setup
 from pulseportraiture_tpu_torch.ops.transform import (_inv2, _inv4,
                                                       mod_pm_half,
@@ -58,6 +60,14 @@ class PortraitFitResult(NamedTuple):
         return self.params[..., 2]
 
     @property
+    def tau(self):
+        return self.params[..., 3]
+
+    @property
+    def alpha(self):
+        return self.params[..., 4]
+
+    @property
     def phi_err(self):
         return self.param_errs[..., 0]
 
@@ -68,6 +78,14 @@ class PortraitFitResult(NamedTuple):
     @property
     def GM_err(self):
         return self.param_errs[..., 2]
+
+    @property
+    def tau_err(self):
+        return self.param_errs[..., 3]
+
+    @property
+    def alpha_err(self):
+        return self.param_errs[..., 4]
 
 
 def _brute_phase_seed(gsr, gsi, Ns=512):
@@ -129,25 +147,35 @@ def _seed_phi_dm(gsr, gsi, wcurv, beta, kdm, Ns=512, max_dphi=0.1):
 
 
 def _rereference(params, setup, nu_out_DM, nu_out_GM, nu_out_tau,
-                 dconst=DCONST):
-    """Transport fitted phi to the output references (tau linear and
-    identically zero on this path).  Reference: pptoaslib.py:1052-1065."""
+                 log10_tau, dconst=DCONST):
+    """Transport fitted (phi, tau) to the output references; log10 tau
+    becomes -inf where the transported tau is not positive.
+    Reference: pptoaslib.py:1052-1065."""
     phi, DM, GM = params[..., 0], params[..., 1], params[..., 2]
-    tau, alpha = params[..., 3], params[..., 4]
+    x_tau, alpha = params[..., 3], params[..., 4]
     P = setup.P
     phi_inf = phase_shifts(phi, DM, GM, math.inf, setup.nu_DM, setup.nu_GM,
                            P, mod=False, dconst=dconst)
     phi_out = phi_inf + (dconst / P) * DM * _inv2(nu_out_DM) + \
         (dconst ** 2 / P) * GM * _inv4(nu_out_GM)
     phi_out = mod_pm_half(phi_out)
-    tau_out = tau * (nu_out_tau / setup.nu_tau) ** alpha
-    return torch.stack([phi_out, DM, GM, tau_out, alpha], dim=-1)
+    tau = 10.0 ** x_tau if log10_tau else x_tau
+    tau_out = scattering_times(tau, alpha, nu_out_tau, setup.nu_tau)
+    if log10_tau:
+        pos = tau_out > 0.0
+        x_tau_out = torch.where(
+            pos, torch.log10(torch.where(pos, tau_out,
+                                         torch.ones_like(tau_out))),
+            torch.full_like(tau_out, -math.inf))
+    else:
+        x_tau_out = tau_out
+    return torch.stack([phi_out, DM, GM, x_tau_out, alpha], dim=-1)
 
 
-def _finalize(params_out, setup_out, fit_flags, fun, moments):
+def _finalize(params_out, setup_out, fit_flags, fun, moments, log10_tau):
     """Covariance, scales, SNR and chi2 at the output references, from
     the optimizer's final moments rebased there (no pass over Gr/Gi)."""
-    m_out = stats.rebase_moments(moments, setup_out)
+    m_out = stats.rebase_moments(moments, setup_out, params_out, log10_tau)
     cov, perrs, scales, scale_errs, S = stats._covariance_core(
         m_out, setup_out, fit_flags)
     channel_snrs = scales * torch.sqrt(torch.clamp(S, min=0.0))
@@ -184,8 +212,8 @@ def template_spectrum(model_port, f0_fact=F0_FACT):
 
 def fit_portrait_full_batch(data_ports, model_ft_ri, init_params, Ps, freqs,
                             errs, weights=None, nu_fits=None,
-                            fit_flags=(1, 1, 0, 0, 0), max_iter=100,
-                            scales=None, dtype=None):
+                            fit_flags=(1, 1, 0, 0, 0), log10_tau=True,
+                            max_iter=100, scales=None, dtype=None):
     """Batched fit of every item of data_ports against one template.
 
     data_ports: (B, nchan, nbin) float, or int16 with `scales` (B, nchan)
@@ -197,14 +225,20 @@ def fit_portrait_full_batch(data_ports, model_ft_ri, init_params, Ps, freqs,
     init_params (B, 5); Ps (B,); freqs (B, nchan) or (nchan,); errs
     (B, nchan) time-domain noise; weights optional (B, nchan) mask;
     nu_fits (B, 3) or None (per-item mean frequency).
+    fit_flags: (phi, DM, GM, tau, alpha).  With tau or alpha fitted the
+    Newton loop runs the scattering moments, tau (params[:, 3]) in log10
+    when log10_tau, else linear [rot], referenced at nu_fits[:, 2];
+    otherwise tau is identically zero (the no-scattering specialization)
+    and params[:, 3:] only ride along, linearly.  M2 stays one (nchan, nh)
+    array for the whole batch.
     dtype: working float type (default: the data's, float32 for int16).
     init_params[:, 0] (and [:, 1] when DM is fitted) are replaced by the
     brute seed.  Returns a PortraitFitResult with a leading batch axis.
     """
     ff = tuple(int(bool(f)) for f in fit_flags)
-    if ff[3] or ff[4]:
-        raise NotImplementedError("fitting tau/alpha (the scattering fit) is "
-                                  "not ported: ROADMAP queue 1, item 12")
+    nu_zeros.require_ported(ff)
+    scattering = bool(ff[3] or ff[4])
+    log10_tau = bool(log10_tau) and scattering
     dev = data_ports.device
     # The seed's (B, NH) @ (NH, Ns) product, the Newton steps and the
     # covariance need f32-class matmuls: TF32 keeps ~3 decimal digits.
@@ -269,23 +303,27 @@ def fit_portrait_full_batch(data_ports, model_ft_ri, init_params, Ps, freqs,
         nbin=int(nbin), sd_chan=w * sd)
 
     def fgh(xp):
-        return stats.chi2_value_grad_hess(xp, setup, fit_flags=ff)
+        return stats.chi2_value_grad_hess(xp, setup, fit_flags=ff,
+                                          log10_tau=log10_tau,
+                                          scattering=scattering)
 
     res = newton.trust_region_minimize(fgh, init, max_iter=max_iter,
                                        gtol=1e-11, xtol=1e-14, has_aux=True,
                                        step_mask=ff)
+    x, moments, fun = res.x, res.aux, res.fun
     nu_out_DM, nu_out_GM, nu_out_tau = nu_zeros.nu_zeros_closed_form(
-        setup, ff, res.aux)
+        setup, ff, moments, params=x, log10_tau=log10_tau)
     if ff[1]:
         nu_out_GM = nu_out_DM
     elif ff[2]:
         nu_out_DM = nu_out_GM
-    params_out = _rereference(res.x, setup, nu_out_DM, nu_out_GM,
-                              nu_out_tau)
+    params_out = _rereference(x, setup, nu_out_DM, nu_out_GM,
+                              nu_out_tau, log10_tau)
     setup_out = setup._replace(nu_DM=nu_out_DM, nu_GM=nu_out_GM,
                                nu_tau=nu_out_tau)
     (cov, perrs, scl, scl_errs, channel_snrs, snr, chi2, red_chi2,
-     ch_rchi2) = _finalize(params_out, setup_out, ff, res.fun, res.aux)
+     ch_rchi2) = _finalize(params_out, setup_out, ff, fun, moments,
+                           log10_tau)
     return PortraitFitResult(
         params=params_out, param_errs=perrs, scales=scl,
         scale_errs=scl_errs, nu_DM=nu_out_DM, nu_GM=nu_out_GM,

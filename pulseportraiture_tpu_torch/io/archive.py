@@ -1,20 +1,57 @@
 """load_data: an archive file into the DataBunch record.
 
-Port of pulseportraiture_tpu.io.archive.load_data (same DataBunch schema,
-reference pplib.py:2650-2814), built on the shared PSRFITS codec and
-ephemeris geometry and on this package's own noise estimators (the JAX
-loader imports ops.noise, which imports jax).
+Port of pulseportraiture_tpu/io/archive.py load_data (same DataBunch
+schema, reference pplib.py:2650-2814), on this package's own copies of
+the PSRFITS codec, the ephemeris geometry and the noise estimators.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from pulseportraiture_tpu.io.archive import _ephemeris_geometry
-from pulseportraiture_tpu.io.psrfits import read_psrfits
-from pulseportraiture_tpu.io.telescopes import telescope_code
-from pulseportraiture_tpu.utils import DataBunch, get_bin_centers
+from pulseportraiture_tpu_torch.io.psrfits import read_psrfits
+from pulseportraiture_tpu_torch.io.telescopes import telescope_code
 from pulseportraiture_tpu_torch.ops.noise import get_noise_PS, get_SNR
+from pulseportraiture_tpu_torch.utils import DataBunch, get_bin_centers
+
+
+def _ephemeris_geometry(arch, nsub):
+    """Per-subint (doppler_factors, parallactic_angles).
+
+    Mirrors reference pplib.py:2696-2707: PSRCHIVE's per-Integration
+    get_doppler_factor()/get_parallactic_angle() are recomputed from the
+    stored ephemeris (RAJ/DECJ) and the observatory coordinates.  A file
+    DOPPLER column overrides the Doppler computation; unknown sites or
+    missing coordinates fall back to df=1, pa=0.
+    """
+    dfs = arch.doppler_factors
+    pas = np.zeros(nsub)
+    ra_deg = dec_deg = None
+    if arch.ephemeris_lines:
+        from pulseportraiture_tpu_torch.io.par import parse_par
+        from pulseportraiture_tpu_torch.io.parang import (dms_to_deg,
+                                                          hms_to_deg)
+        par = parse_par(arch.ephemeris_lines)
+        if hasattr(par, "RAJ") and hasattr(par, "DECJ"):
+            try:
+                ra_deg = hms_to_deg(par.RAJ)
+                dec_deg = dms_to_deg(par.DECJ)
+            except ValueError:
+                pass
+    if ra_deg is None:
+        return (dfs if dfs is not None else np.ones(nsub)), pas
+    from pulseportraiture_tpu_torch.io.ephem import doppler_factor
+    from pulseportraiture_tpu_torch.io.parang import (OBSERVATORY_COORDS,
+                                                      parallactic_angle)
+    coords = OBSERVATORY_COORDS.get(str(arch.telescope).upper())
+    lat, lon = coords if coords is not None else (None, None)
+    mjds = np.array([e.in_days() for e in arch.epochs])
+    if dfs is None:
+        dfs = np.asarray(doppler_factor(mjds, ra_deg, dec_deg, lat, lon))
+    if coords is not None and hasattr(par, "RAJ"):
+        pas = np.array([parallactic_angle(arch.telescope, par.RAJ,
+                                          par.DECJ, m) for m in mjds])
+    return dfs, pas
 
 
 def load_data(filename, state=None, dedisperse=False, dededisperse=False,

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from pulseportraiture_tpu.config import SNR_FUDGE
+from pulseportraiture_tpu_torch.config import SNR_FUDGE
 
 
 def _float_dtype(dt):

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from pulseportraiture_tpu.config import DCONST
+from pulseportraiture_tpu_torch.config import DCONST
 
 
 def rotate_portrait_np(port, phase=0.0, DM=0.0, P=None, freqs=None,

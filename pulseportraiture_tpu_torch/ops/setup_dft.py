@@ -81,7 +81,7 @@ def band_cap_model_ft(mr, mi, nbin, rel_floor=1e-6, f0_fact=None):
     channel is below rel_floor * max are zeroed; DC is zeroed unless
     f0_fact (default config.F0_FACT)."""
     if f0_fact is None:
-        from pulseportraiture_tpu.config import F0_FACT
+        from pulseportraiture_tpu_torch.config import F0_FACT
         f0_fact = F0_FACT
     mr = np.asarray(mr, np.float32).copy()
     mi = np.asarray(mi, np.float32).copy()

@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from pulseportraiture_tpu.config import DCONST
+from pulseportraiture_tpu_torch.config import DCONST
 
 
 def _inv2(nu):

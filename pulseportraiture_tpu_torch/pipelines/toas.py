@@ -1,12 +1,13 @@
 """Wideband TOA/DM measurement (the pptoas pipeline) on the port.
 
 Port of pulseportraiture_tpu.pipelines.toas.GetTOAs.get_TOAs for the
-wideband (phi, DM) fit (fit_DM, no GM, no scattering, zero-covariance
-output references).  Per archive: load, prepare every subint against a
-cached template (evaluated, base-rotated by the header DM on the host in
-float64, and band-capped for float32 fits), fit the subints in chunked
-batches with fitters.portrait.fit_portrait_full_batch on the chosen
-device, and assemble TOAs with Doppler-corrected DMs and .tim flags.
+wideband fit: (phi, DM), and with fit_scat the scattering fit (phi, DM,
+tau[, alpha]); no GM, zero-covariance output references.  Per archive:
+load, prepare every subint against a cached template (evaluated,
+base-rotated by the header DM on the host in float64, and band-capped for
+float32 fits), fit the subints in chunked batches with
+fitters.portrait.fit_portrait_full_batch on the chosen device, and
+assemble TOAs with Doppler-corrected DMs, scattering times and .tim flags.
 Reference: pptoas.py:150-743.
 """
 
@@ -18,19 +19,23 @@ import time
 import numpy as np
 import torch
 
-from pulseportraiture_tpu.config import DCONST, F0_FACT
-from pulseportraiture_tpu.io.tim import TOA
-from pulseportraiture_tpu.utils import weighted_mean
+from pulseportraiture_tpu_torch.config import DCONST, F0_FACT
+from pulseportraiture_tpu_torch.io.tim import TOA
+from pulseportraiture_tpu_torch.utils import weighted_mean
 from pulseportraiture_tpu_torch._device import resolve_device
 from pulseportraiture_tpu_torch.fitters.portrait import (
     fit_portrait_full_batch, template_spectrum)
 from pulseportraiture_tpu_torch.io.archive import load_data
 from pulseportraiture_tpu_torch.ops.rotate import rotate_portrait_np
+from pulseportraiture_tpu_torch.ops.scattering import (
+    scattering_portrait_FT_np, scattering_times)
 from pulseportraiture_tpu_torch.ops.setup_dft import (band_cap_model_ft,
                                                       cap_nharm)
 
 _MAX_CHUNK = 64
 _MAX_TEMPLATES = 8     # cached template evaluations kept at once
+# scattering guess defaults: tau [sec], at nu [MHz], index (pptoas.py:~437)
+_DEFAULT_SCAT_GUESS = (1e-5, 1500.0, -4.0)
 
 
 def _auto_fit_chunk(nchan, nbin, nh, x_itemsize, f_itemsize, device):
@@ -60,8 +65,8 @@ def _parallactic_angle_for(data, epoch):
     """Parallactic angle [deg] from the archive's ephemeris + telescope
     (NaN when unknown; reference pptoas.py:1081-1082)."""
     try:
-        from pulseportraiture_tpu.io.par import parse_par
-        from pulseportraiture_tpu.io.parang import parallactic_angle
+        from pulseportraiture_tpu_torch.io.par import parse_par
+        from pulseportraiture_tpu_torch.io.parang import parallactic_angle
         eph = getattr(data.arch, "ephemeris_lines", None)
         if not eph:
             return float("nan")
@@ -80,7 +85,7 @@ class _ModelSource:
         with open(modelfile, "rb") as f:
             magic = f.read(6)
         if magic == b"SIMPLE":
-            from pulseportraiture_tpu.io.psrfits import read_psrfits
+            from pulseportraiture_tpu_torch.io.psrfits import read_psrfits
             self.kind, self.payload = "fits", read_psrfits(modelfile)
         elif magic[:2] in (b"\x80\x02", b"\x80\x03", b"\x80\x04",
                            b"(l") or str(modelfile).endswith((".spl",
@@ -131,7 +136,8 @@ class GetTOAs:
 
     _PER_ARCHIVE = ("ok_isubs", "epochs", "MJDs", "Ps", "phis", "phi_errs",
                     "TOAs", "TOA_errs", "DMs", "DM_errs", "GMs", "GM_errs",
-                    "scales", "scale_errs", "snrs", "channel_snrs",
+                    "taus", "tau_errs", "alphas", "alpha_errs", "scales",
+                    "scale_errs", "snrs", "channel_snrs",
                     "fit_channel_red_chi2s", "fluxes", "flux_errs",
                     "red_chi2s", "covariances", "nfevals", "rcs", "nu_fits",
                     "nu_refs")
@@ -156,17 +162,22 @@ class GetTOAs:
 
     def get_TOAs(self, datafile=None, tscrunch=False, nu_refs=None,
                  DM0=None, bary=True, fit_DM=True, fit_GM=False,
-                 fit_scat=False, print_phase=False, print_flux=False,
+                 fit_scat=False, log10_tau=True, scat_guess=None,
+                 fix_alpha=True, print_phase=False, print_flux=False,
                  print_parangle=False, addtnl_toa_flags=None, nu_fits=None,
                  quiet=None, mesh=None):
         """Fit every subint of every archive; fills TOA_list and the
-        per-archive lists.  Reference: pptoas.py:150-743."""
+        per-archive lists.
+
+        fit_scat: also fit the scattering time tau (in log10 unless
+        log10_tau is False) and, unless fix_alpha, the index alpha,
+        starting from scat_guess = (tau [sec], at nu [MHz], alpha).
+        Spline and FITS templates are taken as they are (unscattered).
+        Reference: pptoas.py:150-743.
+        """
         if mesh is not None:
             raise NotImplementedError("multi-device sharding (mesh) is not "
                                       "ported: ROADMAP queue 1, item 19")
-        if fit_scat:
-            raise NotImplementedError("fit_scat (the scattering fit) is not "
-                                      "ported: ROADMAP queue 1, item 12")
         if fit_GM:
             raise NotImplementedError("fit_GM needs the GM nu_zeros branches:"
                                       " ROADMAP queue 1, item 5")
@@ -176,7 +187,15 @@ class GetTOAs:
         quiet = self.quiet if quiet is None else quiet
         datafiles = [datafile] if datafile is not None else self.datafiles
         addtnl_toa_flags = addtnl_toa_flags or {}
-        fit_flags = (1, int(fit_DM), 0, 0, 0)
+        # fit-flag assembly (pptoas.py:216-227)
+        if fit_scat and not fix_alpha:
+            fit_flags = (1, int(fit_DM), 0, 1, 1)
+        elif fit_scat:
+            fit_flags = (1, int(fit_DM), 0, 1, 0)
+        else:
+            fit_flags = (1, int(fit_DM), 0, 0, 0)
+        self.log10_tau = log10_tau = bool(log10_tau and fit_scat)
+        sg = _DEFAULT_SCAT_GUESS if scat_guess is None else scat_guess
         f32 = self.dtype == torch.float32
         np_dtype = np.float32 if f32 else np.float64
         timing = {"load_s": 0.0, "fit_s": 0.0, "assemble_s": 0.0,
@@ -254,6 +273,14 @@ class GetTOAs:
                     wgt = SNRsx * freqsx ** -2.0
                     nu_fit = float(nu0 + ((freqsx - nu0) * wgt).sum() /
                                    wgt.sum())
+                # tau and alpha start values (pptoas.py:~437); phi and DM
+                # are seeded in the batch fit
+                tau_guess_rot = (sg[0] / P) * (nu_fit / sg[1]) ** sg[2]
+                if log10_tau:
+                    tau_guess = float(np.log10(max(tau_guess_rot, 1e-12)))
+                else:
+                    tau_guess = tau_guess_rot if fit_scat else 0.0
+                init = np.array([0.0, 0.0, 0.0, tau_guess, sg[2]])
                 if i2_ok:
                     port, scale = data.raw_i2[isub], data.raw_scl[isub]
                 else:
@@ -262,7 +289,8 @@ class GetTOAs:
                 preps.append(dict(isub=isub, P=P, freqs=freqs,
                                   weights=weights, port=port, scale=scale,
                                   errs=errs, okc=okc, entry=entry,
-                                  nu_fit=nu_fit, DM_base=DM0_arch))
+                                  nu_fit=nu_fit, DM_base=DM0_arch,
+                                  init=init))
             # the preps hold what the fits need: free the archive's sample
             # arrays (the int16 ports are views, kept until fitted)
             data["subints"] = None
@@ -296,12 +324,13 @@ class GetTOAs:
                 scales = dev(np.stack([p.pop("scale") for _, p in items]),
                              torch.float32)
             res = fit_portrait_full_batch(
-                x, entry["dev"], dev(np.zeros((len(items), 5))),
+                x, entry["dev"], dev(np.stack([p["init"] for _, p in items])),
                 dev([p["P"] for _, p in items]),
                 dev(np.stack([p["freqs"] for _, p in items])),
                 dev(np.stack([p["errs"] for _, p in items])),
                 nu_fits=dev([[p["nu_fit"]] * 3 for _, p in items]),
-                fit_flags=fit_flags, scales=scales, dtype=self.dtype)
+                fit_flags=fit_flags, log10_tau=log10_tau, scales=scales,
+                dtype=self.dtype)
             host = type(res)(*[None if v is None else v.cpu().numpy()
                                for v in res])
             dur = (time.time() - t0) / len(items)
@@ -330,7 +359,8 @@ class GetTOAs:
                        for p in job["preps"]):
                     return
                 self._assemble_archive(job, results, next_assemble, bary,
-                                       fit_DM, print_phase, print_flux,
+                                       fit_DM, fit_scat, fix_alpha,
+                                       print_phase, print_flux,
                                        print_parangle, addtnl_toa_flags,
                                        timing)
                 for p in job["preps"]:
@@ -364,8 +394,8 @@ class GetTOAs:
                   f"{med_err:.3f} us")
 
     def _assemble_archive(self, job, results, iarch, bary, fit_DM,
-                          print_phase, print_flux, print_parangle,
-                          addtnl_toa_flags, timing):
+                          fit_scat, fix_alpha, print_phase, print_flux,
+                          print_parangle, addtnl_toa_flags, timing):
         """TOAs and per-archive records from the fitted subints."""
         t0 = time.time()
         df, data, DM0_arch = job["df"], job["data"], job["DM0_arch"]
@@ -398,7 +428,18 @@ class GetTOAs:
                 DM_bary, GM_bary = DM_fit, GM_fit
             scales_np = np.asarray(res.scales)
             scale_errs_np = np.asarray(res.scale_errs)
-            model_means = entry["model"][prep["okc"]].mean(-1)
+            # flux from the (scattered) model means x scales
+            # (pptoas.py:554-576)
+            flux_model = entry["model"][prep["okc"]]
+            tau_fit = (10.0 ** float(res.tau) if self.log10_tau
+                       else float(res.tau))
+            if fit_scat and tau_fit != 0.0:
+                taus_x = scattering_times(tau_fit, float(res.alpha), freqsx,
+                                          float(res.nu_tau))
+                flux_model = np.fft.irfft(
+                    scattering_portrait_FT_np(taus_x, nbin) *
+                    np.fft.rfft(flux_model, axis=-1), n=nbin, axis=-1)
+            model_means = flux_model.mean(-1)
             flux_vals = scales_np[prep["okc"]] * model_means
             flux_errs_chan = np.abs(model_means) * \
                 scale_errs_np[prep["okc"]]
@@ -420,6 +461,21 @@ class GetTOAs:
                 fratio=float(freqsx.max() / freqsx.min()),
                 tmplt=self.modelfile, snr=float(res.snr))
             flags["gof"] = float(res.red_chi2)
+            if fit_scat:
+                # topocentric -> barycentric via the Doppler factor
+                # (pptoas.py:615-627)
+                flags["scat_time"] = float(tau_fit * P / df_dop * 1e6)  # us
+                if self.log10_tau:
+                    flags["log10_scat_time"] = float(
+                        float(res.tau) + np.log10(P / df_dop))
+                    flags["log10_scat_time_err"] = float(res.tau_err)
+                else:
+                    flags["scat_time_err"] = float(
+                        float(res.tau_err) * P / df_dop * 1e6)
+                flags["scat_ref_freq"] = float(res.nu_tau) * df_dop
+                flags["scat_ind"] = float(res.alpha)
+                if not fix_alpha:
+                    flags["scat_ind_err"] = float(res.alpha_err)
             if print_phase:
                 flags["phs"] = phi
                 flags["phs_err"] = phi_err
@@ -444,7 +500,11 @@ class GetTOAs:
                     ("phi_errs", phi_err), ("TOAs", toa_mjd),
                     ("TOA_errs", toa_err_us), ("DMs", DM_bary),
                     ("DM_errs", float(res.DM_err)), ("GMs", GM_bary),
-                    ("GM_errs", float(res.GM_err)), ("scales", scales_np),
+                    ("GM_errs", float(res.GM_err)),
+                    ("taus", float(res.tau)), ("tau_errs", float(res.tau_err)),
+                    ("alphas", float(res.alpha)),
+                    ("alpha_errs", float(res.alpha_err)),
+                    ("scales", scales_np),
                     ("scale_errs", scale_errs_np),
                     ("snrs", float(res.snr)),
                     ("channel_snrs", np.asarray(res.channel_snrs)),
@@ -479,7 +539,8 @@ class GetTOAs:
         self.DeltaDM_errs.append(dm_err)
         self.fit_durations.append(arch_duration)
         as_array = {"MJDs", "Ps", "phis", "phi_errs", "TOA_errs", "DMs",
-                    "DM_errs", "GMs", "GM_errs", "snrs", "fluxes",
+                    "DM_errs", "GMs", "GM_errs", "taus", "tau_errs",
+                    "alphas", "alpha_errs", "snrs", "fluxes",
                     "flux_errs", "red_chi2s", "nfevals", "rcs"}
         for name in self._PER_ARCHIVE:
             v = rec[name]

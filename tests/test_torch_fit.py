@@ -2,9 +2,19 @@
 package's fit_portrait_full_batch, float64 (x64) on the same data.
 
 The two seed differently (the port's fused (phi, DM) seed vs the JAX CPU
-route's mean-profile phase seed) and converge to the same optimum: phi
-and DM agree within 1e-6 of their formal errors; param_errs, covariance,
-scales, red_chi2, snr and nu_DM within 1e-8 relative.
+route's mean-profile phase seed) and converge to the same optimum.
+(phi, DM): phi and DM agree within 1e-6 of their formal errors;
+param_errs, covariance, scales, red_chi2, snr and nu_DM within 1e-8
+relative.  The scattering fits (tau, and alpha, fitted) on scattered
+data: both packages run the same loop rules in float64, and the JAX
+package's epilogue (covariance, zero-covariance frequencies) reads the
+moments of the last verified Newton point, which trails the speculative
+final step, so the results depend on the path: the JAX package against
+itself from two starting taus differs by 1.8e-6 sigma in log10 tau and
+1.5e-7 relative in the covariance, and the port seeds differently.
+There the parameters agree within 1e-5 sigma, param_errs, covariance,
+scales, nu_DM and nu_tau within 1e-6 relative, and chi2, red_chi2 and
+snr within 1e-8 relative.
 """
 
 import numpy as np
@@ -28,37 +38,47 @@ from torch_parity_utils import injected_batch, rel_err, t64  # noqa: E402
 torch.set_num_threads(2)
 
 
-def _port(d, data=None, dtype=torch.float64, mft=None, **kw):
+def _port(d, data=None, dtype=torch.float64, mft=None, init=None, **kw):
     B = d["data"].shape[0]
     x = torch.from_numpy(d["data"] if data is None else data)
     return fit_portrait_full_batch(
         x, template_spectrum(d["model"]) if mft is None else mft,
-        torch.zeros((B, 5), dtype=dtype), t64(np.full(B, d["P"])),
+        torch.zeros((B, 5), dtype=dtype) if init is None else
+        torch.as_tensor(init, dtype=dtype), t64(np.full(B, d["P"])),
         t64(d["freqs"]), t64(d["errs"]), nu_fits=t64(d["nu_fits"]),
         dtype=dtype, **kw)
 
 
-@pytest.mark.parametrize("fit_flags", [(1, 1, 0, 0, 0), (1, 0, 0, 0, 0)])
+@pytest.mark.parametrize("fit_flags", [(1, 1, 0, 0, 0), (1, 0, 0, 0, 0),
+                                       (1, 1, 0, 1, 0), (1, 1, 0, 1, 1)])
 def test_fit_matches_jax_float64(fit_flags):
-    d = injected_batch(B=3, nchan=32, nbin=256, seed=0)
+    scat = bool(fit_flags[3])
+    d = injected_batch(B=3, nchan=32, nbin=256, seed=0,
+                       tau=4e-3 if scat else 0.0)
     d["errs"][1, [3, 17]] = 0.0          # dead (zero-weight) channels
     B = 3
+    init = np.zeros((B, 5))
+    if scat:
+        init[:, 3], init[:, 4] = np.log10(2e-3), -4.0
     want = jfit(jnp.asarray(d["data"]), jnp.asarray(d["model"]),
-                jnp.zeros((B, 5)), jnp.full(B, d["P"]),
+                jnp.asarray(init), jnp.full(B, d["P"]),
                 jnp.asarray(d["freqs"]), jnp.asarray(d["errs"]),
                 nu_fits=jnp.asarray(d["nu_fits"]), fit_flags=fit_flags,
-                log10_tau=False, scattering=False, seed_phase=True,
+                log10_tau=scat, scattering=scat, seed_phase=True,
                 seed_dm=True)
-    got = _port(d, fit_flags=fit_flags)
+    got = _port(d, init=init, fit_flags=fit_flags, log10_tau=scat)
     errs = np.asarray(want.param_errs)
-    for j in (0, 1):
+    tol_p, tol_r = (1e-5, 1e-6) if scat else (1e-6, 1e-8)
+    for j in range(5):
         if fit_flags[j]:
             d_p = np.abs(got.params[:, j].numpy() -
                          np.asarray(want.params)[:, j])
-            assert np.all(d_p <= 1e-6 * errs[:, j]), (j, d_p, errs[:, j])
+            assert np.all(d_p <= tol_p * errs[:, j]), (j, d_p, errs[:, j])
     for name in ("param_errs", "covariance_matrix", "scales", "scale_errs",
-                 "red_chi2", "snr", "nu_DM", "chi2", "channel_snrs",
-                 "channel_red_chi2"):
+                 "nu_DM", "nu_tau", "channel_snrs", "channel_red_chi2"):
+        assert rel_err(getattr(got, name), getattr(want, name)) < tol_r, \
+            name
+    for name in ("red_chi2", "snr", "chi2"):
         assert rel_err(getattr(got, name), getattr(want, name)) < 1e-8, name
     assert bool((got.return_code < 3).all())
 
@@ -92,6 +112,10 @@ def test_float32_capped_fit_agrees_with_float64():
 
 
 def test_scattering_flags_are_not_ported():
+    """Scattering with GM and alpha held, (1, 1, 1, 1, 0), and the GM
+    fits (1, 1, 1, 0, 0), (1, 0, 1, 0, 0) need the GM nu_zeros branches,
+    which are not ported yet."""
     d = injected_batch(B=1, nchan=8, nbin=64, seed=3)
-    with pytest.raises(NotImplementedError):
-        _port(d, fit_flags=(1, 1, 0, 1, 0))
+    for ff in ((1, 1, 1, 1, 0), (1, 1, 1, 0, 0), (1, 0, 1, 0, 0)):
+        with pytest.raises(NotImplementedError):
+            _port(d, fit_flags=ff)

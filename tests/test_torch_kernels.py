@@ -68,6 +68,35 @@ def test_phase_moments_kernel_matches_twin(cuda, nh):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nh,shared_m2", [(128, True), (1025, True),
+                                          (2049, True), (200, False)])
+def test_scattering_moments_kernel_matches_twin(cuda, nh, shared_m2):
+    rng = np.random.default_rng(nh + 7)
+    B, nchan = 3, 77
+    freqs = np.linspace(1100.0, 1900.0, nchan)
+    Gr = rng.normal(size=(B, nchan, nh)).astype(np.float32)
+    Gi = rng.normal(size=(B, nchan, nh)).astype(np.float32)
+    M2 = np.abs(rng.normal(size=(nchan, nh) if shared_m2 else
+                           (B, nchan, nh))).astype(np.float32)
+    phis = rng.uniform(-3.0, 3.0, (B, nchan)).astype(np.float32)
+    taus = (8e-3 * (freqs / 1500.0) ** -4.0 *
+            10.0 ** rng.uniform(-1.0, 1.0, (B, nchan))).astype(np.float32)
+    taus[0, :3] = 0.0                           # unscattered rows
+    t = [torch.from_numpy(a).to(cuda) for a in (phis, taus, Gr, Gi, M2)]
+    n0 = mom.scattering_moments.launches
+    got = mom.scattering_moments(*t)
+    torch.cuda.synchronize()
+    assert mom.scattering_moments.launches == n0 + 1
+    ref = mom.scattering_moments_reference(*[a.double() for a in t])
+    bound = mom.scattering_moments_reference(*[a.double() for a in t],
+                                             absolute=True)
+    for j, (g, r, b) in enumerate(zip(got, ref, bound)):
+        assert g.dtype == torch.float32 and g.shape == (B, nchan)
+        err = (g.double() - r).abs()
+        assert bool((err <= 2e-6 * b).all()), (j, float(err.max()))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("nbin,capped,i16,f0_fact,nchan,seeds", [
     (512, True, False, False, 70, True),
     (512, False, False, False, 70, True),
@@ -93,7 +122,7 @@ def test_fused_setup_kernel_matches_twin(cuda, nbin, capped, i16, f0_fact,
     scale = None
     x = data
     if i16:
-        from pulseportraiture_tpu.io.native import quantize_i2
+        from pulseportraiture_tpu_torch.io.native import quantize_i2
         raw, scl, _ = quantize_i2(data)
         x, scale = raw, scl.astype(np.float32)
     w = rng.uniform(0.5, 2.0, (B, nchan, 2)).astype(np.float32)
@@ -140,11 +169,22 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
     g = torch.zeros((1, 33, 4), device=cuda).transpose(1, 2)
     with pytest.raises(ValueError):          # not contiguous
         mom.phase_moments(torch.zeros((1, 4), device=cuda), g, g)
+    p = torch.zeros((1, 4), device=cuda)
+    G = torch.zeros((1, 4, 33), device=cuda)
+    with pytest.raises(TypeError):
+        mom.scattering_moments(p, p, G, G, G[0].double())
+    with pytest.raises(ValueError):          # M2 of another shape
+        mom.scattering_moments(p, p, G, G, G[0, :, :20].contiguous())
+    with pytest.raises(ValueError):
+        big = torch.zeros((1, 4, 5000), device=cuda)
+        mom.scattering_moments(p, p, big, big, big[0])
+    with pytest.raises(ValueError):          # not contiguous
+        mom.scattering_moments(p, p, G, G, g[0])
 
 
 @pytest.mark.cuda
 def test_batched_fit_on_card_matches_cpu_float64(cuda):
-    from pulseportraiture_tpu.config import DCONST
+    from pulseportraiture_tpu_torch.config import DCONST
     from pulseportraiture_tpu_torch.fitters.portrait import (
         fit_portrait_full_batch, template_spectrum)
     rng = np.random.default_rng(0)
@@ -190,3 +230,42 @@ def test_batched_fit_on_card_matches_cpu_float64(cuda):
                 torch.full((B, nchan), noise, device=cuda))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+def test_scattering_fit_on_card_matches_cpu_float64(cuda):
+    """(phi, DM, tau, alpha) on the card in float32 (both kernels) agrees
+    with the float64 twin route on the CPU within 1e-2 sigma."""
+    from pulseportraiture_tpu_torch.fitters.portrait import (
+        fit_portrait_full_batch, template_spectrum)
+    rng = np.random.default_rng(5)
+    B, nchan, nbin, P, noise, tau = 4, 256, 512, 0.003, 0.1, 8e-3
+    model, _ = _portrait(rng, 1, nchan, nbin)
+    freqs = np.linspace(1100.0, 1900.0, nchan)
+    nu_fit = freqs.mean()
+    k = 2j * np.pi * np.arange(nbin // 2 + 1)
+    mf = np.fft.rfft(model, axis=-1)
+    sf = mf / (1.0 + k * (tau * (freqs / nu_fit) ** -4.0)[:, None])
+    data = np.fft.irfft(sf * np.exp(-k * rng.uniform(-0.01, 0.01, (B, 1, 1))),
+                        n=nbin, axis=-1)
+    data = (data + rng.normal(0, noise, data.shape)).astype(np.float32)
+    init = np.zeros((B, 5))
+    init[:, 3], init[:, 4] = np.log10(4e-3), -4.0
+    mr, mi = template_spectrum(model)
+    out = {}
+    n0 = mom.scattering_moments.launches
+    for dev, dt in ((cuda, torch.float32), (torch.device("cpu"),
+                                            torch.float64)):
+        def t(a):
+            return torch.as_tensor(a, dtype=dt, device=dev)
+        out[dev.type] = fit_portrait_full_batch(
+            torch.from_numpy(data).to(dev), (mr, mi), t(init),
+            t(np.full(B, P)), t(freqs), t(np.full((B, nchan), noise)),
+            nu_fits=t(np.full((B, 3), nu_fit)), fit_flags=(1, 1, 0, 1, 1),
+            dtype=dt)
+    assert mom.scattering_moments.launches > n0
+    g, c = out["cuda"], out["cpu"]
+    assert bool(g.return_code.lt(3).all())
+    for j in (0, 1, 3, 4):
+        d = (g.params[:, j].double().cpu() - c.params[:, j]).abs()
+        assert bool((d <= 1e-2 * c.param_errs[:, j]).all()), (j, d)

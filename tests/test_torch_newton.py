@@ -7,6 +7,8 @@ equal item by item, and x within 1e-10 (eigh and summation order differ
 between LAPACK front ends at the 1e-16 level).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -188,6 +190,39 @@ def test_speculative_step_bounded_on_singular_hessian(dtype):
     x = res.x[0].double().numpy()
     assert abs(x[0] - a0) < 1e-4, x
     assert -0.05 < x[1] < a1 + 0.15, x
+
+
+def test_float32_stops_at_the_optimum():
+    """In float32 the relative gradient test 100 eps |g0| is set by the
+    stiff coordinate's first gradient (~2e8): the JAX package's loop
+    ends the soft coordinate ~28 units (sigma) short.  The port's stops
+    wait for g H^-1 g <= DEC_TOL."""
+    a = (1.0, 30.0)
+
+    def fgh_jax(x):
+        d = x - jnp.asarray(a, x.dtype)
+        f = 3e7 + 1e8 * d[0] ** 2 + d[1] ** 2
+        return f, jnp.stack([2e8 * d[0], 2.0 * d[1]]), \
+            jnp.diag(jnp.asarray([2e8, 2.0], x.dtype))
+
+    def fgh(x):
+        d = x - torch.tensor(a, dtype=x.dtype)
+        f = 3e7 + 1e8 * d[:, 0] ** 2 + d[:, 1] ** 2
+        g = torch.stack([2e8 * d[:, 0], 2.0 * d[:, 1]], dim=-1)
+        H = torch.diag_embed(torch.stack([torch.full_like(d[:, 0], 2e8),
+                                          torch.full_like(d[:, 1], 2.0)],
+                                         dim=-1))
+        return f, g, H
+
+    kw = dict(max_iter=60, init_radius=1.0)
+    want = jnewton.trust_region_minimize(fgh_jax, jnp.zeros(2, jnp.float32),
+                                         **kw)
+    assert np.asarray(want.x).dtype == np.float32
+    assert abs(float(want.x[1]) - a[1]) > 1.0
+    got = newton.trust_region_minimize(fgh, torch.zeros((1, 2)), **kw)
+    assert got.x.dtype == torch.float32 and bool(got.success[0])
+    assert abs(float(got.x[0, 1]) - a[1]) <= math.sqrt(newton.DEC_TOL)
+    assert abs(float(got.x[0, 0]) - a[0]) <= 1e-7
 
 
 def test_newton_on_the_fit_objective_matches_jax():

@@ -32,6 +32,8 @@ from pulseportraiture_tpu.sim.fake import make_fake_pulsar  # noqa: E402
 from pulseportraiture_tpu.utils import get_bin_centers  # noqa: E402
 from pulseportraiture_tpu_torch.pipelines import toas  # noqa: E402
 
+from torch_parity_utils import mjd_diff_s  # noqa: E402
+
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -112,7 +114,7 @@ def test_port_toas_match_jax(ws, kind):
     assert len(got.TOA_list) == len(want.TOA_list) == 6
     for a, b in zip(got.TOA_list, want.TOA_list):
         assert a.archive == b.archive
-        assert abs(a.MJD - b.MJD) < 1e-9            # seconds: 1 ns
+        assert abs(mjd_diff_s(a.MJD, b.MJD)) < 1e-9     # seconds: 1 ns
         assert abs(a.frequency - b.frequency) < 1e-6 * b.frequency
         assert abs(a.DM - b.DM) <= 1e-6 * b.DM_error
         assert abs(a.DM_error - b.DM_error) <= 1e-6 * b.DM_error
@@ -181,6 +183,8 @@ def test_chunked_fits_equal_one_batch(ws, monkeypatch):
 
 
 def test_port_pipeline_and_cli_never_import_jax(ws):
+    """The (phi, DM) and the fit_scat pipeline and the CLI load neither
+    jax nor any module of the JAX package."""
     tim = str(ws["path"] / "cli.tim")
     code = (
         "import sys\n"
@@ -191,14 +195,20 @@ def test_port_pipeline_and_cli_never_import_jax(ws):
         f"gt = GetTOAs({ws['files']!r}, {ws['spl']!r}, device='cpu',\n"
         "             quiet=True)\n"
         "gt.get_TOAs(quiet=True)\n"
+        f"gs = GetTOAs({ws['files'][:1]!r}, {ws['fits']!r}, device='cpu',\n"
+        "             quiet=True)\n"
+        "gs.get_TOAs(quiet=True, fit_scat=True)\n"
         f"pptoas.main(['-d', {ws['files'][0]!r}, '-m', {ws['fits']!r},\n"
         f"             '-o', {tim!r}, '--device', 'cpu', '--quiet'])\n"
-        "print(len(gt.TOA_list), 'jax' in sys.modules)\n")
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'pulseportraiture_tpu')]\n"
+        "print(len(gt.TOA_list), len(gs.TOA_list), 'jax' in sys.modules,\n"
+        "      len(bad))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split()[-2:] == ["6", "False"], out.stdout
+    assert out.stdout.split()[-4:] == ["6", "2", "False", "0"], out.stdout
     with open(tim) as f:
         assert len(f.read().splitlines()) == 2
 
@@ -214,10 +224,14 @@ def test_cuda_device_without_a_card_raises(ws):
 
 
 def test_unported_options_raise(ws):
+    """What the port still refuses: GM, user output references (nu_refs),
+    mesh sharding and .gmodel templates, with or without fit_scat."""
     gt = toas.GetTOAs(ws["files"][:1], ws["fits"], device="cpu",
                       dtype=torch.float64, quiet=True)
-    for kw in (dict(fit_scat=True), dict(fit_GM=True),
-               dict(nu_refs=(1400.0, 1400.0, 1400.0)), dict(mesh=object())):
+    for kw in (dict(fit_GM=True), dict(fit_GM=True, fit_scat=True),
+               dict(nu_refs=(1400.0, 1400.0, 1400.0)),
+               dict(nu_refs=(None, None, 1400.0), fit_scat=True),
+               dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             gt.get_TOAs(quiet=True, **kw)
     gmodel = str(ws["path"] / "test.gmodel")

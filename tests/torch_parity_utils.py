@@ -7,7 +7,7 @@ the JAX package (float64 under tests/conftest.py's x64) and the port.
 import numpy as np
 import torch
 
-from pulseportraiture_tpu.config import DCONST
+from pulseportraiture_tpu_torch.config import DCONST
 
 
 def rel_err(got, want):
@@ -18,6 +18,12 @@ def rel_err(got, want):
         np.asarray(want)
     scale = np.max(np.abs(want))
     return float(np.max(np.abs(got - want)) / (scale if scale else 1.0))
+
+
+def mjd_diff_s(a, b):
+    """a - b [s] for split-precision MJDs of either package."""
+    return (a.days - b.days) * 86400.0 + (a.secs - b.secs) + \
+        (a.frac - b.frac)
 
 
 def t64(a):
@@ -34,9 +40,12 @@ def template(nchan, nbin, freqs=None):
     return prof[None, :] * (freqs[:, None] / 1500.0) ** -1.5
 
 
-def injected_batch(B=3, nchan=32, nbin=256, P=0.003, noise=0.1, seed=0):
+def injected_batch(B=3, nchan=32, nbin=256, P=0.003, noise=0.1, seed=0,
+                   tau=0.0, alpha=-4.0):
     """bench.py's data recipe at a small size: per-item injected (phi,
-    DM) shifts of a shared template plus white noise.  Returns a dict."""
+    DM) shifts of a shared template plus white noise; with tau > 0 the
+    data are also scattered by tau (nu/nu_fit)^alpha [rot] (the template
+    is not).  Returns a dict."""
     rng = np.random.default_rng(seed)
     freqs = np.linspace(1100.0, 1900.0, nchan)
     model = template(nchan, nbin, freqs)
@@ -45,6 +54,9 @@ def injected_batch(B=3, nchan=32, nbin=256, P=0.003, noise=0.1, seed=0):
     nu_fit = freqs.mean()
     k = 2j * np.pi * np.arange(nbin // 2 + 1)
     mft = np.fft.rfft(model, axis=-1)
+    if tau:
+        taus = tau * (freqs / nu_fit) ** alpha
+        mft = mft / (1.0 + k * taus[:, None])     # B = 1/(1 + 2 pi i k tau)
     data = np.empty((B, nchan, nbin))
     for i in range(B):
         shift = phis[i] + DCONST * dms[i] / P * (freqs ** -2 - nu_fit ** -2)
@@ -52,7 +64,7 @@ def injected_batch(B=3, nchan=32, nbin=256, P=0.003, noise=0.1, seed=0):
                                axis=-1)
     data += rng.normal(0.0, noise, data.shape)
     return dict(model=model, data=data, phis=phis, dms=dms, freqs=freqs,
-                P=P, noise=noise, nu_fit=nu_fit,
+                P=P, noise=noise, nu_fit=nu_fit, tau=tau, alpha=alpha,
                 errs=np.full((B, nchan), noise),
                 nu_fits=np.full((B, 3), nu_fit))
 
