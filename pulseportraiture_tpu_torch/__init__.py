@@ -1,4 +1,4 @@
-"""pulseportraiture_tpu_torch: the wideband TOA path in PyTorch and CUDA.
+"""pulseportraiture_tpu_torch: wideband and narrowband TOAs in PyTorch and CUDA.
 
 A port of `pulseportraiture_tpu` (JAX/XLA/Pallas) to PyTorch, with the
 device kernels written by hand in CUDA C++ for Hopper (`csrc/`).  The JAX
@@ -6,10 +6,10 @@ package stays the reference: the port's CPU tests run both packages on the
 same inputs.  Layers follow the JAX package:
 
   ops/       transforms, the fused setup (DFT + cross-spectrum) and the
-             phase-moments reduction, each kernel beside its plain twin
+             moments reductions, each kernel beside its plain twin
   fitters/   sufficient statistics, the batched trust-region Newton loop,
-             the batched (phi, DM) portrait fit
-  models/    spline template evaluation (host numpy)
+             the batched portrait fit, FFTFIT and the pat-style estimators
+  models/    spline and Gaussian template evaluation (host numpy)
   io/        archive loading (the PSRFITS codec is shared with the JAX
              package, which imports no JAX at those modules)
   pipelines/ GetTOAs: archives -> batched fits -> TOAs

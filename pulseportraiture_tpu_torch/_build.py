@@ -22,7 +22,8 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-_SOURCES = ("setup.cu", "moments.cu", "scat_moments.cu")
+_SOURCES = ("setup.cu", "moments.cu", "scat_moments.cu",
+            "moments_merged.cu")
 _HEADERS = ("phase_trig.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -48,6 +49,8 @@ def _declare(lib):
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.pp_phase_moments.argtypes = [vp, vp, vp, vp, i64, i32, vp]
     lib.pp_phase_moments.restype = i32
+    lib.pp_phase_moments_merged.argtypes = [vp, vp, vp, i64, i32, vp]
+    lib.pp_phase_moments_merged.restype = i32
     lib.pp_fused_setup.argtypes = [vp, i32, vp, i32, vp, vp, vp, vp, i32,
                                    vp, vp, vp, vp, vp, vp, i32, i32, i32,
                                    i32, i32, vp]

@@ -19,3 +19,15 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {str(device)!r}")
     return dev
+
+
+def require_f32_matmul(name, device):
+    """Raise when float32 matmuls on `device` would run in TF32.
+
+    The brute phase grids ((Ns, nh) @ (nh, rows)), the Newton steps and
+    the covariance need float32-class products: TF32 keeps ~3 decimal
+    digits.
+    """
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(f"{name} needs float32 matmuls: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")

@@ -1,12 +1,17 @@
-"""pptoas (port) — wideband TOAs and DMs from folded archives.
+"""pptoas (port) — wideband and narrowband TOAs from folded archives.
 
     python -m pulseportraiture_tpu_torch.cli.pptoas -d epochs -m PSR.spl \
         -o PSR.tim [--fit_scat [--fit_alpha] [--no_logscat]] \
-        [--device cuda|cpu]
+        [--nu_ref MHz] [--nu_tau MHz] [--one_DM] [--princeton] \
+        [--narrowband | --psrchive [--algorithm PGS]] [--device cuda|cpu]
 
-Runs the (phi, DM) fit, or with --fit_scat the scattering fit, on the
-chosen device: "cuda" (the default) needs a card and stops with an error
-without one.  Reference CLI: pptoas.py:1422-1629.
+Runs the (phi, DM) fit, or with --fit_scat the scattering fit; with
+--narrowband per-channel FFTFIT TOAs, with --psrchive per-channel TOAs by
+a pat-style estimator.  All on the chosen device: "cuda" (the default)
+needs a card and stops with an error without one.  The template is a
+.gmodel, a .spl or a FITS archive.  The princeton output path of the
+reference calls an undefined method (pptoas.py:1599-1601); here it writes
+through io.tim.write_princeton_TOA.  Reference CLI: pptoas.py:1422-1629.
 """
 
 from __future__ import annotations
@@ -23,17 +28,35 @@ def build_parser():
     p.add_argument("-d", "--datafiles", required=True,
                    help="archive file, or metafile listing archives")
     p.add_argument("-m", "--modelfile", required=True,
-                   help=".spl spline model or FITS-template model file")
+                   help=".gmodel, .spl, or FITS-template model file")
     p.add_argument("-o", "--outfile", default=None,
                    help="output .tim file (default: stdout)")
     p.add_argument("-T", "--tscrunch", action="store_true",
                    help="time-scrunch archives before fitting")
+    p.add_argument("--narrowband", action="store_true",
+                   help="measure per-channel narrowband TOAs instead of "
+                        "wideband TOAs")
+    p.add_argument("--psrchive", action="store_true",
+                   help="measure narrowband TOAs in the style of PSRCHIVE's "
+                        "pat/ArrivalTime; pat-style tempo2 lines go to "
+                        "--outfile/stdout")
+    p.add_argument("--algorithm", default="PGS",
+                   choices=("PGS", "FDM", "SIS", "PIS", "GIS", "COF"),
+                   help="ArrivalTime shift estimator for --psrchive "
+                        "(default PGS, the reference's choice)")
+    p.add_argument("--nu_ref", type=float, default=None,
+                   help="output reference frequency [MHz] (default: the "
+                        "zero-covariance frequency)")
     p.add_argument("--DM", dest="DM0", type=float, default=None,
                    help="override header DM [pc cm^-3]")
     p.add_argument("--no_bary", action="store_true",
                    help="do not Doppler-correct DM to the barycenter")
+    p.add_argument("--one_DM", action="store_true",
+                   help="rewrite TOA DMs to the per-archive mean DM")
     p.add_argument("--fix_DM", action="store_true",
                    help="do not fit for DM")
+    p.add_argument("--fit_dt4", action="store_true",
+                   help="fit for GM (nu^-4 delay); not ported yet")
     p.add_argument("--fit_scat", action="store_true",
                    help="fit for scattering timescale")
     p.add_argument("--no_logscat", action="store_true",
@@ -43,7 +66,7 @@ def build_parser():
                         "comma-separated")
     p.add_argument("--nu_tau", type=float, default=None,
                    help="output reference frequency for the scattering "
-                        "timescale [MHz] (not ported yet)")
+                        "timescale [MHz]")
     p.add_argument("--fix_alpha", action="store_true", default=True,
                    help="hold the scattering index fixed (default)")
     p.add_argument("--fit_alpha", dest="fix_alpha", action="store_false",
@@ -58,6 +81,8 @@ def build_parser():
                    help="additional TOA flags: name1=val1,name2=val2,...")
     p.add_argument("--snr_cut", type=float, default=0.0,
                    help="drop TOAs below this S/N")
+    p.add_argument("--princeton", action="store_true",
+                   help="write princeton-format TOAs instead of IPTA")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="device for the fits (default: cuda)")
     p.add_argument("--quiet", action="store_true")
@@ -68,7 +93,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     import torch
 
-    from pulseportraiture_tpu_torch.io.tim import write_TOAs
+    from pulseportraiture_tpu_torch.io.tim import (write_princeton_TOA,
+                                                   write_TOAs)
     from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
 
     scat_guess = None
@@ -78,8 +104,10 @@ def main(argv=None):
             sys.exit("--scat_guess needs tau,freq,index")
         scat_guess = tuple(vals)
     nu_refs = None
-    if args.nu_tau is not None:
-        nu_refs = (None, None, args.nu_tau)
+    if args.nu_ref is not None or args.nu_tau is not None:
+        base = args.nu_ref
+        nu_refs = (base, base,
+                   args.nu_tau if args.nu_tau is not None else base)
     addtnl = {}
     if args.flags:
         for kv in args.flags.split(","):
@@ -88,15 +116,56 @@ def main(argv=None):
     gt = GetTOAs(args.datafiles, args.modelfile, device=args.device,
                  dtype=torch.float32,
                  quiet=args.quiet)
-    gt.get_TOAs(tscrunch=args.tscrunch, nu_refs=nu_refs, DM0=args.DM0,
-                bary=not args.no_bary, fit_DM=not args.fix_DM,
-                fit_scat=args.fit_scat, log10_tau=not args.no_logscat,
-                scat_guess=scat_guess, fix_alpha=args.fix_alpha,
-                print_phase=args.print_phase,
-                print_flux=args.print_flux,
-                print_parangle=args.print_parangle,
-                addtnl_toa_flags=addtnl)
-    write_TOAs(gt.TOA_list, SNR_cutoff=args.snr_cut, outfile=args.outfile)
+    if args.psrchive:
+        # pat-style lines; the wideband .tim machinery does not apply
+        gt.get_psrchive_TOAs(tscrunch=args.tscrunch,
+                             algorithm=args.algorithm)
+        out = open(args.outfile, "a") if args.outfile else sys.stdout
+        try:
+            for lines in gt.psrchive_toas:
+                for line in lines:
+                    print(line, file=out)
+        finally:
+            if args.outfile:
+                out.close()
+        return 0
+    if args.narrowband:
+        gt.get_narrowband_TOAs(tscrunch=args.tscrunch,
+                               fit_scat=args.fit_scat,
+                               log10_tau=not args.no_logscat,
+                               scat_guess=scat_guess,
+                               print_phase=args.print_phase,
+                               print_flux=args.print_flux,
+                               print_parangle=args.print_parangle,
+                               addtnl_toa_flags=addtnl)
+    else:
+        gt.get_TOAs(tscrunch=args.tscrunch, nu_refs=nu_refs, DM0=args.DM0,
+                    bary=not args.no_bary, fit_DM=not args.fix_DM,
+                    fit_GM=args.fit_dt4, fit_scat=args.fit_scat,
+                    log10_tau=not args.no_logscat, scat_guess=scat_guess,
+                    fix_alpha=args.fix_alpha, print_phase=args.print_phase,
+                    print_flux=args.print_flux,
+                    print_parangle=args.print_parangle,
+                    addtnl_toa_flags=addtnl)
+
+    if args.one_DM:
+        # each TOA's DM becomes its archive's DeltaDM_mean + DM0
+        # (pptoas.py:1603-1615)
+        by_arch = {df: (gt.DeltaDM_means[i] + gt.DM0s[i], gt.DeltaDM_errs[i])
+                   for i, df in enumerate(gt.order)}
+        for toa in gt.TOA_list:
+            if toa.archive in by_arch:
+                toa.DM, toa.DM_error = by_arch[toa.archive]
+
+    if args.princeton:
+        for toa in gt.TOA_list:
+            write_princeton_TOA(
+                toa.MJD.intday(), toa.MJD.fracday(), toa.TOA_error,
+                toa.frequency, toa.DM if toa.DM is not None else 0.0,
+                obs=toa.telescope_code, outfile=args.outfile)
+    else:
+        write_TOAs(gt.TOA_list, SNR_cutoff=args.snr_cut,
+                   outfile=args.outfile)
     return 0
 
 

@@ -1,5 +1,5 @@
 // Double-single phasor e^{2 pi i phi k} in float32, shared by the moments
-// kernels (moments.cu, scat_moments.cu).
+// kernels (moments.cu, scat_moments.cu, moments_merged.cu).
 //
 // Matches fitters/stats.py _phase_trig step for step:
 //   * built WITHOUT --use_fast_math: sincosf is the precise libdevice

@@ -1,8 +1,10 @@
 """Batched wideband portrait fit: (phi, DM) and the scattering fit.
 
 Port of pulseportraiture_tpu.fitters.portrait.fit_portrait_full_batch
-with one route: the shared template spectrum (capped or full band), the
-fused setup (ops.setup_dft: DFT, cross-spectrum, data power and the two
+(and, through seed_phase=False, nu_outs and scattering=True, of what the
+pipeline asks of the per-subint fit_portrait_full) with one route: the
+template spectrum (shared or per item, capped or full band), the fused
+setup (ops.setup_dft: DFT, cross-spectrum, data power and the two
 stacked seed sums in one pass), the joint brute (phi, DM) seed, the
 batched trust-region Newton loop over the phase moments (tau and alpha
 fixed) or the scattering moments (tau, and alpha, fitted), then
@@ -18,6 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pulseportraiture_tpu_torch._device import require_f32_matmul
 from pulseportraiture_tpu_torch.config import DCONST, F0_FACT
 from pulseportraiture_tpu_torch.fitters import newton, nu_zeros, stats
 from pulseportraiture_tpu_torch.ops.scattering import scattering_times
@@ -213,39 +216,46 @@ def template_spectrum(model_port, f0_fact=F0_FACT):
 def fit_portrait_full_batch(data_ports, model_ft_ri, init_params, Ps, freqs,
                             errs, weights=None, nu_fits=None,
                             fit_flags=(1, 1, 0, 0, 0), log10_tau=True,
-                            max_iter=100, scales=None, dtype=None):
-    """Batched fit of every item of data_ports against one template.
+                            max_iter=100, scales=None, dtype=None,
+                            seed_phase=True, nu_outs=None, scattering=None):
+    """Batched fit of every item of data_ports against a template.
 
     data_ports: (B, nchan, nbin) float, or int16 with `scales` (B, nchan)
     (int16-native ingest; requires config.F0_FACT falsy).
-    model_ft_ri: the template's natural-order split spectrum (mr, mi),
-    each (nchan, nh): nh = nbin/2 + 1 for the full band, or the capped
-    prefix NH = NQ*M' of a band_cap_model_ft spectrum (host numpy or
-    tensors; cast to the working dtype on the data's device).
+    model_ft_ri: the template's natural-order split spectrum (mr, mi):
+    each (nchan, nh), one template shared by every item (M2 then stays one
+    (nchan, nh) array for the batch), or each (B, nchan, nh), a template
+    per item (the JAX package's model_ports of shape (B, nchan, nbin)).
+    nh = nbin/2 + 1 for the full band, or the capped prefix NH = NQ*M' of
+    a band_cap_model_ft spectrum (host numpy or tensors; cast to the
+    working dtype on the data's device).
     init_params (B, 5); Ps (B,); freqs (B, nchan) or (nchan,); errs
     (B, nchan) time-domain noise; weights optional (B, nchan) mask;
     nu_fits (B, 3) or None (per-item mean frequency).
     fit_flags: (phi, DM, GM, tau, alpha).  With tau or alpha fitted the
     Newton loop runs the scattering moments, tau (params[:, 3]) in log10
-    when log10_tau, else linear [rot], referenced at nu_fits[:, 2];
-    otherwise tau is identically zero (the no-scattering specialization)
-    and params[:, 3:] only ride along, linearly.  M2 stays one (nchan, nh)
-    array for the whole batch.
+    when log10_tau, else linear [rot], referenced at nu_fits[:, 2].
+    scattering: None takes tau as identically zero unless tau or alpha is
+    fitted (the no-scattering specialization; params[:, 3:] then only
+    ride along, linearly); True keeps an unfitted tau in the model, as
+    the JAX package's per-subint fitter does for the reduced flag sets of
+    a subint with too few channels.
     dtype: working float type (default: the data's, float32 for int16).
-    init_params[:, 0] (and [:, 1] when DM is fitted) are replaced by the
-    brute seed.  Returns a PortraitFitResult with a leading batch axis.
+    seed_phase: True (what GetTOAs.get_TOAs uses) replaces
+    init_params[:, 0] (and [:, 1] when DM is fitted) by the brute seed;
+    False keeps the caller's start, as the JAX package's default does
+    (required with a template per item).
+    nu_outs: optional (nu_DM, nu_GM, nu_tau) output references, each None
+    (the zero-covariance frequency), a number or (B,); as in the JAX
+    package's fit_portrait_full, nu_GM follows nu_DM when DM is fitted.
+    Returns a PortraitFitResult with a leading batch axis.
     """
     ff = tuple(int(bool(f)) for f in fit_flags)
     nu_zeros.require_ported(ff)
-    scattering = bool(ff[3] or ff[4])
+    scattering = bool(ff[3] or ff[4]) or bool(scattering)
     log10_tau = bool(log10_tau) and scattering
     dev = data_ports.device
-    # The seed's (B, NH) @ (NH, Ns) product, the Newton steps and the
-    # covariance need f32-class matmuls: TF32 keeps ~3 decimal digits.
-    if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("fit_portrait_full_batch needs float32 matmuls: "
-                           "set torch.backends.cuda.matmul.allow_tf32 = "
-                           "False")
+    require_f32_matmul("fit_portrait_full_batch", dev)
     if dtype is None:
         dtype = (torch.float32 if data_ports.dtype == torch.int16
                  else data_ports.dtype)
@@ -276,25 +286,50 @@ def fit_portrait_full_batch(data_ports, model_ft_ri, init_params, Ps, freqs,
     mr = as_t(model_ft_ri[0]).contiguous()
     mi = as_t(model_ft_ri[1]).contiguous()
     nh = mr.shape[-1]
+    per_item = mr.dim() == 3
+    if mr.shape != mi.shape or mr.shape[:-1] != ((B, nchan) if per_item
+                                                 else (nchan,)):
+        raise ValueError(f"model_ft_ri must be (nchan, nh) or (B, nchan, nh) "
+                         f"pairs; got {tuple(mr.shape)}, {tuple(mi.shape)} "
+                         f"for data {tuple(x.shape)}")
+    if per_item and seed_phase:
+        raise ValueError("a template per item needs seed_phase=False: the "
+                         "brute seed's sums are taken by the setup kernel "
+                         "against one shared template")
 
     errs_FT = errs * math.sqrt(nbin / 2.0)
     w = torch.where(errs_FT > 0.0, errs_FT ** -2.0,
                     torch.zeros_like(errs_FT)) * (weights > 0.0)
-    hi_mask = (torch.arange(nchan, device=dev) >= nchan // 2).to(dtype)
-    w_seed = torch.stack([w, w * hi_mask[None, :]], dim=-1).contiguous()
-    Gr, Gi, sd, gsr, gsi = fused_setup(x, mr, mi, f0_fact=bool(F0_FACT),
-                                       w=w_seed, scale=scales)
+    w_seed = None
+    if seed_phase:
+        hi_mask = (torch.arange(nchan, device=dev) >= nchan // 2).to(dtype)
+        w_seed = torch.stack([w, w * hi_mask[None, :]], dim=-1).contiguous()
+    if per_item:
+        # the setup takes one template row per channel row: run it as ONE
+        # item of B*nchan channels (whatever B and nchan are, e.g. 4096
+        # single-channel items); its seed sums would then run over the
+        # whole batch, so a template per item comes with the caller's start
+        Gr, Gi, sd = (t.view(B, nchan, *t.shape[2:]) for t in fused_setup(
+            x.view(1, B * nchan, nbin), mr.view(B * nchan, nh),
+            mi.view(B * nchan, nh), f0_fact=bool(F0_FACT),
+            scale=None if scales is None else scales.view(1, B * nchan)))
+    elif seed_phase:
+        Gr, Gi, sd, gsr, gsi = fused_setup(x, mr, mi, f0_fact=bool(F0_FACT),
+                                           w=w_seed, scale=scales)
+    else:
+        Gr, Gi, sd = fused_setup(x, mr, mi, f0_fact=bool(F0_FACT),
+                                 scale=scales)
     M2 = mr * mr + mi * mi
     init = as_t(init_params).clone()
-    if ff[1]:
+    if seed_phase and ff[1]:
         kvec = torch.arange(nh, dtype=dtype, device=dev)
-        wcurv = w * torch.sum(M2 * kvec * kvec, dim=-1)[None, :]
+        wcurv = w * torch.sum(M2 * kvec * kvec, dim=-1)
         beta = freqs ** -2.0 - (nu_fits[:, 0] ** -2.0)[:, None]
         kdm = DCONST / Ps
         phi0, dm0 = _seed_phi_dm(gsr, gsi, wcurv, beta, kdm)
         init[:, 0] = phi0
         init[:, 1] = dm0
-    else:
+    elif seed_phase:
         init[:, 0] = _brute_phase_seed(gsr[:, 0], gsi[:, 0])
     setup = stats.FitSetup(
         Gr=Gr, Gi=Gi, M2=M2, w=w, freqs=freqs, P=Ps, nu_DM=nu_fits[:, 0],
@@ -313,6 +348,11 @@ def fit_portrait_full_batch(data_ports, model_ft_ri, init_params, Ps, freqs,
     x, moments, fun = res.x, res.aux, res.fun
     nu_out_DM, nu_out_GM, nu_out_tau = nu_zeros.nu_zeros_closed_form(
         setup, ff, moments, params=x, log10_tau=log10_tau)
+    if nu_outs is not None:
+        nu_out_DM, nu_out_GM, nu_out_tau = (
+            zero if user is None else as_t(user).expand(B)
+            for user, zero in zip(nu_outs, (nu_out_DM, nu_out_GM,
+                                            nu_out_tau)))
     if ff[1]:
         nu_out_GM = nu_out_DM
     elif ff[2]:

@@ -21,7 +21,14 @@ Kernel notes:
   * csrc/scat_moments.cu `pp_scat_moments` replaces
     `_scattering_moments_impl`, `_scattering_moments_kvec_impl` and
     `_scattering_moments_ct_impl` the same way.
-  * Both: one warp per row strides over the harmonics (coalesced reads,
+  * csrc/moments_merged.cu `pp_phase_moments_merged` replaces the merged
+    single-stream kernel of scripts/tpu_moments_layout.py
+    (`make_merged_kernel`): the phase moments read from one buffer
+    g = [Gr | Gi] of shape (rows, 2 nharm).  The narrowband fits build
+    their cross-spectrum once in that layout and launch it once per
+    Newton step; with nharm a multiple of 4 each half is read by 128-bit
+    loads.
+  * All three: one warp per row strides over the harmonics (coalesced reads,
     each element of Gr/Gi read once; M2 rows come from L2 across items),
     the double-single phasor of fitters.stats._phase_trig per element
     (csrc/phase_trig.cuh, rounded non-contracted f32 steps, precise
@@ -29,7 +36,9 @@ Kernel notes:
     torch forms materialize (B, nchan, nharm) temporaries; the kernels
     none.
   * Bound on the H100: the 8 bytes of Gr/Gi per harmonic (the scattering
-    kernel adds one IEEE division per harmonic).
+    kernel adds one IEEE division per harmonic).  The merged kernel at
+    one narrowband subint (4096 rows, 1025 harmonics: 34 MB) is
+    launch-latency sized.
 """
 
 from __future__ import annotations
@@ -106,6 +115,65 @@ def _launch(phis, Gr, Gi):
             raise RuntimeError(f"pp_phase_moments launch failed: CUDA error "
                                f"{err} ({lib.pp_error_string(err).decode()})")
         phase_moments.launches += 1
+    return out[0], out[1], out[2]
+
+
+def phase_moments_merged_reference(phis, g):
+    """Plain torch (C, Cp, Cpp), each (...,), from phis (...,) and the
+    merged stream g (..., 2 nharm) = [Gr | Gi]: the split twin on the two
+    halves."""
+    nharm = g.shape[-1] // 2
+    return phase_moments_reference(phis, g[..., :nharm], g[..., nharm:])
+
+
+def phase_moments_merged(phis, g):
+    """(C, Cp, Cpp), each (...,), from phis (...,) and one merged stream
+    g (..., 2 nharm) with g[..., :nharm] = Gr and g[..., nharm:] = Gi.
+
+    CPU tensors take the plain twin; CUDA tensors launch the kernel (or
+    raise): there is no fallback between the two.
+    """
+    if g.shape[-1] % 2:
+        raise ValueError(f"phase_moments_merged: g must hold [Gr | Gi], got "
+                         f"an odd last axis {g.shape[-1]}")
+    if g.device.type == "cpu":
+        return phase_moments_merged_reference(phis, g)
+    if g.device.type != "cuda":
+        raise ValueError(f"phase_moments_merged: unsupported device "
+                         f"{g.device}")
+    return _launch_merged(phis, g)
+
+
+phase_moments_merged.launches = 0
+
+
+def _launch_merged(phis, g):
+    from pulseportraiture_tpu_torch._build import load_kernels
+
+    _check_f32("phase_moments_merged", (("phis", phis), ("g", g)), g.device)
+    if phis.shape != g.shape[:-1]:
+        raise ValueError(f"phase_moments_merged: shapes phis "
+                         f"{tuple(phis.shape)}, g {tuple(g.shape)}")
+    nharm = g.shape[-1] // 2
+    _check_nharm("phase_moments_merged", nharm)
+    phis = phis.contiguous()
+    if not g.is_contiguous():
+        raise ValueError("phase_moments_merged kernel: g must be contiguous")
+    rows = phis.numel()
+    out = torch.empty((3,) + tuple(phis.shape), dtype=torch.float32,
+                      device=g.device)
+    if rows:
+        lib = load_kernels()
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = lib.pp_phase_moments_merged(
+            ctypes.c_void_p(phis.data_ptr()), ctypes.c_void_p(g.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), ctypes.c_longlong(rows),
+            ctypes.c_int(nharm), ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"pp_phase_moments_merged launch failed: CUDA "
+                               f"error {err} "
+                               f"({lib.pp_error_string(err).decode()})")
+        phase_moments_merged.launches += 1
     return out[0], out[1], out[2]
 
 

@@ -1,12 +1,15 @@
-"""Off-pulse noise and SNR estimators (host numpy, load time).
+"""Off-pulse noise and SNR estimators.
 
 Port of the concrete-input branch of pulseportraiture_tpu.ops.noise
-(get_noise_PS, get_SNR).  Reference: pplib.py:2227-2308.
+(get_noise_PS, get_SNR), host numpy at load time; noise_PS_profiles is
+the per-profile estimate on tensors, for the narrowband fitters that are
+given no noise.  Reference: pplib.py:2227-2308.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from pulseportraiture_tpu_torch.config import SNR_FUDGE
 
@@ -41,6 +44,16 @@ def get_noise_PS(data, frac=4, chans=False):
     if _float_dtype(dt):
         out = np.asarray(out, dtype=dt)
     return out
+
+
+def noise_PS_profiles(data, frac=4):
+    """get_noise_PS(chans=True) on a tensor (..., nbin), on its device:
+    per-profile noise from the highest 1/frac of each power spectrum."""
+    n = data.shape[-1]
+    FFT = torch.fft.rfft(data, dim=-1)
+    kc = int((1 - 1.0 / frac) * FFT.shape[-1])
+    t = FFT[..., kc:]
+    return torch.sqrt(torch.mean((t.real ** 2 + t.imag ** 2) / n, dim=-1))
 
 
 def get_SNR(prof, fudge=SNR_FUDGE, noise=None):

@@ -1,14 +1,29 @@
-"""Wideband TOA/DM measurement (the pptoas pipeline) on the port.
+"""TOA measurement (the pptoas pipelines) on the port.
 
-Port of pulseportraiture_tpu.pipelines.toas.GetTOAs.get_TOAs for the
-wideband fit: (phi, DM), and with fit_scat the scattering fit (phi, DM,
-tau[, alpha]); no GM, zero-covariance output references.  Per archive:
-load, prepare every subint against a cached template (evaluated,
-base-rotated by the header DM on the host in float64, and band-capped for
-float32 fits), fit the subints in chunked batches with
-fitters.portrait.fit_portrait_full_batch on the chosen device, and
-assemble TOAs with Doppler-corrected DMs, scattering times and .tim flags.
-Reference: pptoas.py:150-743.
+Port of pulseportraiture_tpu.pipelines.toas.GetTOAs:
+
+  get_TOAs             the wideband fit: (phi, DM), and with fit_scat the
+                       scattering fit (phi, DM, tau[, alpha]); no GM.  Per
+                       archive: load, prepare every subint against a
+                       cached template (evaluated, base-rotated by the
+                       header DM on the host in float64, and band-capped
+                       for float32 fits), fit the subints in chunked
+                       batches with fitters.portrait.fit_portrait_full_batch
+                       on the chosen device, and assemble TOAs with
+                       Doppler-corrected DMs, scattering times and .tim
+                       flags.  Subints with a single live channel, and
+                       every subint when the user pins output references
+                       (nu_refs), are fitted from a brute FFTFIT phase
+                       start with reduced flags, as the JAX package's
+                       per-subint fallback does.
+  get_narrowband_TOAs  per-channel TOAs by batched FFTFIT
+                       (fitters.phase_shift), optionally with a
+                       per-channel scattering time.
+  get_psrchive_TOAs    per-channel TOAs by the six pat-style estimators
+                       (fitters.arrival_time).
+
+Templates: a FITS archive, a spline model (.spl) or a Gaussian model
+(.gmodel).  Reference: pptoas.py:150-1206.
 """
 
 from __future__ import annotations
@@ -23,9 +38,14 @@ from pulseportraiture_tpu_torch.config import DCONST, F0_FACT
 from pulseportraiture_tpu_torch.io.tim import TOA
 from pulseportraiture_tpu_torch.utils import weighted_mean
 from pulseportraiture_tpu_torch._device import resolve_device
+from pulseportraiture_tpu_torch.fitters.arrival_time import (
+    ALGORITHMS, arrival_time_shifts)
+from pulseportraiture_tpu_torch.fitters.phase_shift import \
+    fit_phase_shift_batch
 from pulseportraiture_tpu_torch.fitters.portrait import (
     fit_portrait_full_batch, template_spectrum)
 from pulseportraiture_tpu_torch.io.archive import load_data
+from pulseportraiture_tpu_torch.ops.noise import get_noise_PS
 from pulseportraiture_tpu_torch.ops.rotate import rotate_portrait_np
 from pulseportraiture_tpu_torch.ops.scattering import (
     scattering_portrait_FT_np, scattering_times)
@@ -77,11 +97,27 @@ def _parallactic_angle_for(data, epoch):
         return float("nan")
 
 
+def _fit_spectrum(model_rot, nbin, f32):
+    """The template's split spectrum for a fit, (mr, mi, mharm): the host
+    float64 rfft, and for float32 fits the model-band harmonic cap (a
+    cleaning floor below the float32 noise, not below float64's, so
+    float64 fits keep the band).  mharm is None where no cap applies."""
+    mr, mi = template_spectrum(model_rot)
+    mharm = None
+    if f32:
+        mr_c, mi_c, mharm = band_cap_model_ft(mr, mi, nbin)
+        if mharm is not None:
+            nh = cap_nharm(nbin, mharm)
+            mr, mi = mr_c[:, :nh], mi_c[:, :nh]
+    return mr, mi, mharm
+
+
 class _ModelSource:
-    """Evaluate the template portrait at a subint's (freqs, nbin)."""
+    """Evaluate the template portrait at a subint's (freqs, P, nbin)."""
 
     def __init__(self, modelfile):
         self.modelfile = modelfile
+        self._cache = {}
         with open(modelfile, "rb") as f:
             magic = f.read(6)
         if magic == b"SIMPLE":
@@ -95,14 +131,46 @@ class _ModelSource:
             self.kind = "spline"
             self.payload = read_spline_model(modelfile, quiet=True)
         else:
-            raise NotImplementedError(
-                f"{modelfile}: .gmodel (Gaussian) templates are not ported "
-                "yet (ROADMAP queue 1, item 9: ops/gaussian and the "
-                "Gaussian portrait generator)")
+            from pulseportraiture_tpu_torch.models.gmodel_io import \
+                read_model
+            self.kind, self.payload = "gauss", read_model(modelfile,
+                                                          quiet=True)
 
-    def eval(self, phases, freqs):
-        """Template portrait (nchan, nbin) at the given grid."""
+    def eval(self, phases, freqs, P, unscat=False):
+        """Template portrait (nchan, nbin) at the given grid.
+
+        unscat=True evaluates a Gaussian model with its own scattering
+        zeroed: required when the fit measures tau itself, or the kernel
+        would be applied twice (pptoas.py:365-375).  Evaluations are
+        cached: subints usually share the frequency grid, and only a
+        scattered Gaussian model depends on P at all.
+        """
         nbin = len(phases)
+        p_sensitive = (self.kind == "gauss" and self.payload[4][1] != 0
+                       and not unscat)
+        key = (np.asarray(freqs).tobytes(), nbin, bool(unscat),
+               round(float(P), 12) if p_sensitive else None)
+        hit = self._cache.get(key)
+        if hit is None:
+            hit = self._eval(phases, freqs, P, unscat)
+            if len(self._cache) > 64:
+                self._cache.clear()
+            self._cache[key] = hit
+        return hit
+
+    def _eval(self, phases, freqs, P, unscat):
+        nbin = len(phases)
+        if self.kind == "gauss":
+            from pulseportraiture_tpu_torch.models.gaussian import \
+                gen_gaussian_portrait
+            (_, model_code, nu_ref, _, params, _, alpha, _) = self.payload
+            p = np.array(params)
+            if unscat:
+                p[1] = 0.0
+            elif p[1] != 0:
+                p[1] *= nbin / P           # seconds -> bins
+            return gen_gaussian_portrait(model_code, p, alpha, phases, freqs,
+                                         nu_ref)
         if self.kind == "spline":
             from pulseportraiture_tpu_torch.models.spline import \
                 gen_spline_portrait_np
@@ -127,7 +195,7 @@ class _ModelSource:
 
 
 class GetTOAs:
-    """Measure wideband TOAs+DMs for archives against a template.
+    """Measure wideband or narrowband TOAs for archives against a template.
 
     device: "cuda" (the default; requires a card) or "cpu".
     dtype: the fit's float type, float32 (the card's working type) or
@@ -159,6 +227,7 @@ class GetTOAs:
             setattr(self, name, [])
         self.mharms = []
         self.fit_timing = {}
+        self.psrchive_toas = []
 
     def get_TOAs(self, datafile=None, tscrunch=False, nu_refs=None,
                  DM0=None, bary=True, fit_DM=True, fit_GM=False,
@@ -171,8 +240,14 @@ class GetTOAs:
 
         fit_scat: also fit the scattering time tau (in log10 unless
         log10_tau is False) and, unless fix_alpha, the index alpha,
-        starting from scat_guess = (tau [sec], at nu [MHz], alpha).
-        Spline and FITS templates are taken as they are (unscattered).
+        starting from scat_guess = (tau [sec], at nu [MHz], alpha); a
+        Gaussian template is then evaluated with its own scattering
+        zeroed, spline and FITS templates are taken as they are.
+        nu_refs: optional (nu_DM, nu_GM, nu_tau) output references [MHz],
+        each None for the zero-covariance frequency; the tau reference is
+        barycentric and is divided by the Doppler factor when bary.  With
+        nu_refs every subint takes the per-subint route: a brute FFTFIT
+        phase start (no DM seed) and the references pinned.
         Reference: pptoas.py:150-743.
         """
         if mesh is not None:
@@ -181,9 +256,7 @@ class GetTOAs:
         if fit_GM:
             raise NotImplementedError("fit_GM needs the GM nu_zeros branches:"
                                       " ROADMAP queue 1, item 5")
-        if nu_refs is not None:
-            raise NotImplementedError("user output references (nu_refs) are "
-                                      "not ported: ROADMAP queue 1, item 11")
+        batchable_ok = nu_refs is None
         quiet = self.quiet if quiet is None else quiet
         datafiles = [datafile] if datafile is not None else self.datafiles
         addtnl_toa_flags = addtnl_toa_flags or {}
@@ -230,11 +303,6 @@ class GetTOAs:
                 freqs = data.freqs[isub]
                 weights = data.weights[isub]
                 okc = data.ok_ichans[isub]
-                if len(okc) < 2:
-                    raise NotImplementedError(
-                        f"{df} subint {isub}: {len(okc)} live channel(s); "
-                        "the per-subint fallback for degenerate channel "
-                        "counts is not ported (ROADMAP queue 1, item 10)")
                 errs = np.where(weights > 0, data.noise_stds[isub, 0], 0.0)
                 # P quantized to 6 significant digits keys the cache, so
                 # spin-down drift does not fork the shared template; the
@@ -243,23 +311,16 @@ class GetTOAs:
                 mkey = (freqs.tobytes(), P_key, float(DM0_arch))
                 entry = model_cache.get(mkey)
                 if entry is None:
-                    model = self.model_source.eval(data.phases, freqs)
+                    model = self.model_source.eval(data.phases, freqs,
+                                                   float(P),
+                                                   unscat=fit_scat)
                     nu_anchor = float(freqs.mean())
                     # dispersion ADDED to the template once, host f64:
                     # the fit solves a small residual dDM around DM0
                     model_rot = np.asarray(rotate_portrait_np(
                         model, 0.0, -DM0_arch, float(P), freqs, nu_anchor),
                         np_dtype)
-                    mr, mi = template_spectrum(model_rot)
-                    mharm = None
-                    if f32:
-                        # model-band harmonic cap: below the f32 noise,
-                        # not below f64's, so float64 fits keep the band
-                        mr_c, mi_c, mharm = band_cap_model_ft(
-                            mr, mi, data.nbin)
-                        if mharm is not None:
-                            nh = cap_nharm(data.nbin, mharm)
-                            mr, mi = mr_c[:, :nh], mi_c[:, :nh]
+                    mr, mi, mharm = _fit_spectrum(model_rot, data.nbin, f32)
                     entry = dict(key=next(template_ids), model=model_rot,
                                  nu_anchor=nu_anchor, P_model=float(P),
                                  mft=(mr, mi), mharm=mharm, dev=None)
@@ -281,16 +342,28 @@ class GetTOAs:
                 else:
                     tau_guess = tau_guess_rot if fit_scat else 0.0
                 init = np.array([0.0, 0.0, 0.0, tau_guess, sg[2]])
-                if i2_ok:
+                # one live channel carries no DM or scattering law
+                # (pptoas.py:475-483; the two-channel GM reduction needs
+                # fit_GM, refused above)
+                sub_flags = (1, 0, 0, 0, 0) if len(okc) == 1 else fit_flags
+                batchable = batchable_ok and sub_flags == fit_flags
+                if batchable and i2_ok:
                     port, scale = data.raw_i2[isub], data.raw_scl[isub]
                 else:
                     port = np.asarray(data.subints[isub, 0], np_dtype)
                     scale = None
-                preps.append(dict(isub=isub, P=P, freqs=freqs,
-                                  weights=weights, port=port, scale=scale,
-                                  errs=errs, okc=okc, entry=entry,
-                                  nu_fit=nu_fit, DM_base=DM0_arch,
-                                  init=init))
+                prep = dict(isub=isub, P=P, freqs=freqs, weights=weights,
+                            port=port, scale=scale, errs=errs, okc=okc,
+                            entry=entry, nu_fit=nu_fit, DM_base=DM0_arch,
+                            init=init, sub_flags=sub_flags,
+                            batchable=batchable,
+                            doppler=data.doppler_factors[isub])
+                if not batchable:
+                    # fitted per archive from a brute FFTFIT phase start
+                    prep["mean_prof"] = (port[okc] *
+                                         weights[okc][:, None]).mean(0)
+                    prep["mean_model"] = entry["model"][okc].mean(0)
+                preps.append(prep)
             # the preps hold what the fits need: free the archive's sample
             # arrays (the int16 ports are views, kept until fitted)
             data["subints"] = None
@@ -303,7 +376,46 @@ class GetTOAs:
             return dict(idf=idf, df=df, data=data, DM0_arch=DM0_arch,
                         preps=preps)
 
-        def fit_chunk(items):
+        dev = self._dev
+
+        def fill_phase_guesses(plist):
+            """init[0] of per-subint-fitted preps: one batched FFTFIT of
+            the channel-mean profiles per nbin (pptoas.py:~430)."""
+            groups = {}
+            for p in plist:
+                groups.setdefault(len(p["mean_prof"]), []).append(p)
+            for group in groups.values():
+                mp = np.stack([p.pop("mean_prof") for p in group])
+                mm = np.stack([p.pop("mean_model") for p in group])
+                pg = fit_phase_shift_batch(
+                    dev(mp), dev(mm), noise=dev(get_noise_PS(mp, chans=True)),
+                    Ns=100)
+                for p, ph in zip(group, pg.phase.cpu().numpy()):
+                    p["init"][0] = float(ph)
+
+        def fit_fallback(iarch, job):
+            """The subints the batches leave out, when their archive is
+            next to be assembled."""
+            plist = [p for p in job["preps"] if not p["batchable"]]
+            if not plist:
+                return
+            fill_phase_guesses(plist)
+            groups = {}
+            for p in plist:
+                groups.setdefault((p["port"].shape, p["sub_flags"],
+                                   p["entry"]["key"]), []).append((iarch, p))
+            for (shape, sub_flags, _), items in groups.items():
+                nh = len(items[0][1]["entry"]["mft"][0][0])
+                chunk = _auto_fit_chunk(shape[0], shape[1], nh,
+                                        np.dtype(np_dtype).itemsize,
+                                        4 if f32 else 8, self.device)
+                for i in range(0, len(items), chunk):
+                    fit_chunk(items[i:i + chunk], sub_flags, batch=False)
+
+        def fit_chunk(items, flags=fit_flags, batch=True):
+            """One batched fit.  batch=False is the per-subint route: the
+            caller's phase start, the user's output references, and an
+            unfitted tau kept in the model when fit_scat."""
             t0 = time.time()
             entry = items[0][1]["entry"]
             ports = np.stack([p.pop("port") for _, p in items])
@@ -312,11 +424,6 @@ class GetTOAs:
                     torch.as_tensor(np.asarray(a), dtype=self.dtype,
                                     device=self.device)
                     for a in entry["mft"])
-
-            def dev(a, dt=self.dtype):
-                return torch.as_tensor(np.asarray(a), dtype=dt,
-                                       device=self.device)
-
             x = torch.from_numpy(ports).to(self.device)
             del ports
             scales = None
@@ -329,8 +436,10 @@ class GetTOAs:
                 dev(np.stack([p["freqs"] for _, p in items])),
                 dev(np.stack([p["errs"] for _, p in items])),
                 nu_fits=dev([[p["nu_fit"]] * 3 for _, p in items]),
-                fit_flags=fit_flags, log10_tau=log10_tau, scales=scales,
-                dtype=self.dtype)
+                fit_flags=flags, log10_tau=log10_tau, scales=scales,
+                dtype=self.dtype, seed_phase=batch,
+                nu_outs=None if batch else nu_outs_of(items),
+                scattering=None if batch else bool(fit_scat))
             host = type(res)(*[None if v is None else v.cpu().numpy()
                                for v in res])
             dur = (time.time() - t0) / len(items)
@@ -338,6 +447,18 @@ class GetTOAs:
             for i, (iarch, p) in enumerate(items):
                 results[(iarch, p["isub"])] = (
                     type(host)(*[v[i] for v in host]), dur)
+
+        def nu_outs_of(items):
+            """The user's output references per item; the tau reference is
+            barycentric, the fit topocentric (pptoas.py:414)."""
+            if nu_refs is None:
+                return None
+            outs = [None if nu is None else np.full(len(items), float(nu))
+                    for nu in nu_refs]
+            if bary and outs[2] is not None:
+                outs[2] = outs[2] / np.array([p["doppler"]
+                                              for _, p in items])
+            return tuple(outs)
 
         def flush(key, final=False):
             items = buffers[key]
@@ -355,14 +476,16 @@ class GetTOAs:
             nonlocal next_assemble
             while next_assemble < len(jobs):
                 job = jobs[next_assemble]
-                if any((next_assemble, p["isub"]) not in results
+                if any(p["batchable"] and
+                       (next_assemble, p["isub"]) not in results
                        for p in job["preps"]):
                     return
+                fit_fallback(next_assemble, job)
                 self._assemble_archive(job, results, next_assemble, bary,
                                        fit_DM, fit_scat, fix_alpha,
                                        print_phase, print_flux,
                                        print_parangle, addtnl_toa_flags,
-                                       timing)
+                                       timing, nu_refs is not None)
                 for p in job["preps"]:
                     del results[(next_assemble, p["isub"])]
                 jobs[next_assemble] = None      # assembled: release it
@@ -376,9 +499,10 @@ class GetTOAs:
             iarch = len(jobs)
             jobs.append(job)
             for p in job["preps"]:
-                key = (p["port"].shape, p["port"].dtype.str,
-                       p["entry"]["key"])
-                buffers.setdefault(key, []).append((iarch, p))
+                if p["batchable"]:
+                    key = (p["port"].shape, p["port"].dtype.str,
+                           p["entry"]["key"])
+                    buffers.setdefault(key, []).append((iarch, p))
             for key in list(buffers):
                 flush(key)
             drain_assembly()
@@ -395,7 +519,8 @@ class GetTOAs:
 
     def _assemble_archive(self, job, results, iarch, bary, fit_DM,
                           fit_scat, fix_alpha, print_phase, print_flux,
-                          print_parangle, addtnl_toa_flags, timing):
+                          print_parangle, addtnl_toa_flags, timing,
+                          user_refs=False):
         """TOAs and per-archive records from the fitted subints."""
         t0 = time.time()
         df, data, DM0_arch = job["df"], job["data"], job["DM0_arch"]
@@ -460,6 +585,11 @@ class GetTOAs:
                 subint=int(isub), tobs=float(data.subtimes[isub]),
                 fratio=float(freqsx.max() / freqsx.min()),
                 tmplt=self.modelfile, snr=float(res.snr))
+            # raw phi-DM covariance only for user-pinned references with
+            # both parameters fitted (pptoas.py:643-645)
+            if user_refs and fit_DM:
+                flags["phi_DM_cov"] = float(
+                    np.asarray(res.covariance_matrix)[0, 1])
             flags["gof"] = float(res.red_chi2)
             if fit_scat:
                 # topocentric -> barycentric via the Doppler factor
@@ -547,3 +677,201 @@ class GetTOAs:
             getattr(self, name).append(np.asarray(v) if name in as_array
                                        else v)
         timing["assemble_s"] += time.time() - t0
+
+    def _load_dispersed(self, df, tscrunch, quiet):
+        """An archive in its dispersed state, as per-channel TOAs need it
+        (pptoas.py:812-826); None, with a message, when it cannot load."""
+        try:
+            return load_data(df, dedisperse=False, dededisperse=True,
+                             tscrunch=tscrunch, pscrunch=True,
+                             rm_baseline=True, quiet=quiet)
+        except (OSError, ValueError, KeyError, EOFError) as exc:
+            print(f"Skipping {df}: could not load ({exc})")
+            return None
+
+    def _dev(self, a, dtype=None):
+        return torch.as_tensor(np.asarray(a), dtype=dtype or self.dtype,
+                               device=self.device)
+
+    def get_narrowband_TOAs(self, datafile=None, tscrunch=False,
+                            fit_scat=False, log10_tau=True, scat_guess=None,
+                            print_phase=False, print_flux=False,
+                            print_parangle=False, addtnl_toa_flags=None,
+                            quiet=None):
+        """Per-channel (narrowband) TOAs by batched FFTFIT.
+
+        Every live channel of a subint goes through one
+        fit_phase_shift_batch call on the device (the reference loops
+        fit_phase_shift over channels, pptoas.py:745-1131).  fit_scat also
+        fits a scattering time per channel: a batch of single-channel
+        (phi, tau) portrait fits started from the FFTFIT phases, each
+        referenced at its own channel's frequency.  TOAs carry no DM;
+        flags follow pptoas.py:1060-1087 (chan instead of nch/nchx;
+        scat_time and scat_time_err when fit_scat).
+        """
+        quiet = self.quiet if quiet is None else quiet
+        datafiles = [datafile] if datafile is not None else self.datafiles
+        addtnl_toa_flags = addtnl_toa_flags or {}
+        sg = scat_guess or _DEFAULT_SCAT_GUESS
+        f32 = self.dtype == torch.float32
+        timing = {"load_s": 0.0, "fit_s": 0.0, "assemble_s": 0.0,
+                  "wall_s": 0.0}
+        self.fit_timing = timing
+        start_all = time.time()
+        ntoa = 0
+        for df in datafiles:
+            t0 = time.time()
+            data = self._load_dispersed(df, tscrunch, quiet)
+            timing["load_s"] += time.time() - t0
+            if data is None:
+                continue
+            nbin = data.nbin
+            for isub in data.ok_isubs:
+                P = data.Ps[isub]
+                freqs = data.freqs[isub]
+                okc = data.ok_ichans[isub]
+                if not len(okc):
+                    continue
+                t0 = time.time()
+                model = self.model_source.eval(data.phases, freqs, P)[okc]
+                timing["load_s"] += time.time() - t0
+                t0 = time.time()
+                nchx = len(okc)
+                x = self._dev(data.subints[isub, 0][okc])
+                noise = self._dev(data.noise_stds[isub, 0][okc])
+                res = fit_phase_shift_batch(x, self._dev(model), noise=noise)
+                taus_np = tau_errs_np = None
+                if fit_scat:
+                    tau0 = (sg[0] / P) * (freqs[okc] / sg[1]) ** sg[2]
+                    init = np.zeros((nchx, 5))
+                    init[:, 3] = np.log10(np.maximum(tau0, 1e-12)) \
+                        if log10_tau else tau0
+                    init[:, 4] = sg[2]
+                    init = self._dev(init)
+                    init[:, 0] = res.phase
+                    mr, mi, _ = _fit_spectrum(model, nbin, f32)
+                    nu = self._dev(freqs[okc])
+                    bres = fit_portrait_full_batch(
+                        x[:, None, :],
+                        (self._dev(mr)[:, None, :], self._dev(mi)[:, None, :]),
+                        init, torch.full_like(nu, P), nu[:, None],
+                        noise[:, None], nu_fits=nu[:, None].expand(nchx, 3),
+                        fit_flags=(1, 0, 0, 1, 0), log10_tau=log10_tau,
+                        dtype=self.dtype, seed_phase=False)
+                    host = [v.cpu().numpy() for v in (
+                        bres.phi, bres.phi_err, bres.scales[:, 0],
+                        bres.scale_errs[:, 0], bres.snr, bres.red_chi2,
+                        bres.tau, bres.tau_err)]
+                    taus_np, tau_errs_np = host[6:]
+                else:
+                    host = [v.cpu().numpy() for v in res]
+                phases, phase_errs, scales, scale_errs, snrs, gofs = host[:6]
+                timing["fit_s"] += time.time() - t0
+                t0 = time.time()
+                model_means = model.mean(-1)
+                epoch = data.epochs[isub]
+                for ix, ichan in enumerate(okc):
+                    toa_mjd = epoch.add_seconds(
+                        phases[ix] * P + data.backend_delay)
+                    flags = dict(
+                        be=data.backend, fe=data.frontend,
+                        f=f"{data.frontend}_{data.backend}", nbin=nbin,
+                        bw=float(abs(data.bw) / data.nchan),
+                        subint=int(isub), chan=int(ichan),
+                        tobs=float(data.subtimes[isub]),
+                        tmplt=self.modelfile, snr=float(snrs[ix]),
+                        gof=float(gofs[ix]))
+                    if taus_np is not None:
+                        # per-channel scattering flags (pptoas.py:997-1010)
+                        t_lin = 10.0 ** taus_np[ix] if log10_tau \
+                            else taus_np[ix]
+                        t_err = (np.log(10.0) * t_lin * tau_errs_np[ix]
+                                 if log10_tau else tau_errs_np[ix])
+                        flags["scat_time"] = float(t_lin * P * 1e6)
+                        flags["scat_time_err"] = float(t_err * P * 1e6)
+                    if print_phase:
+                        flags["phs"] = float(phases[ix])
+                        flags["phs_err"] = float(phase_errs[ix])
+                    if print_flux:
+                        flags["flux"] = float(scales[ix] * model_means[ix])
+                        flags["flux_err"] = float(
+                            abs(scale_errs[ix]) * model_means[ix])
+                    if print_parangle:
+                        pa = _parallactic_angle_for(data, epoch)
+                        if pa == pa:
+                            flags["par_angle"] = pa
+                    flags.update(addtnl_toa_flags)
+                    self.TOA_list.append(TOA(
+                        df, float(freqs[ichan]), toa_mjd,
+                        float(phase_errs[ix] * P * 1e6), data.telescope,
+                        data.telescope_code, flags=flags))
+                    ntoa += 1
+                timing["assemble_s"] += time.time() - t0
+        timing["wall_s"] = time.time() - start_all
+        if not quiet and ntoa:
+            print(f"\nFit {ntoa} narrowband TOAs in {timing['wall_s']:.2f} s "
+                  f"(~{timing['fit_s'] / ntoa:.4f} sec/TOA fit)")
+
+    def get_psrchive_TOAs(self, datafile=None, tscrunch=False,
+                          algorithm="PGS", toa_format="Tempo2",
+                          flags="IPTA", attributes=("chan", "subint"),
+                          quiet=None):
+        """Narrowband TOAs in the style of PSRCHIVE's ArrivalTime.
+
+        The reference shells into PSRCHIVE's `pat -A <algorithm>`
+        (pptoas.py:1133-1206); here the estimators are native and batched
+        (fitters/arrival_time.py): PGS, FDM, SIS, PIS, GIS and COF.  The
+        pat-style tempo2 lines of each archive are appended to
+        self.psrchive_toas; the TOA objects are returned.
+        """
+        if algorithm not in ALGORITHMS:
+            raise ValueError(f"algorithm {algorithm!r} not supported; one of "
+                             f"{ALGORITHMS}")
+        if toa_format.lower() not in ("tempo2",):
+            raise ValueError("only tempo2 format is supported")
+        quiet = self.quiet if quiet is None else quiet
+        datafiles = [datafile] if datafile is not None else self.datafiles
+        toa_objs = []
+        for df in datafiles:
+            data = self._load_dispersed(df, tscrunch, quiet)
+            if data is None:
+                continue
+            lines = []
+            for isub in data.ok_isubs:
+                P = data.Ps[isub]
+                freqs = data.freqs[isub]
+                okc = data.ok_ichans[isub]
+                if not len(okc):
+                    continue
+                model = self.model_source.eval(data.phases, freqs, P)
+                res = arrival_time_shifts(
+                    self._dev(data.subints[isub, 0][okc]),
+                    self._dev(model[okc]),
+                    noise=self._dev(data.noise_stds[isub, 0][okc]),
+                    algorithm=algorithm)
+                shifts, shift_errs, _, snrs = (v.cpu().numpy() for v in res)
+                epoch = data.epochs[isub]
+                for ix, ichan in enumerate(okc):
+                    toa_mjd = epoch.add_seconds(
+                        shifts[ix] * P + data.backend_delay)
+                    toa_err_us = shift_errs[ix] * P * 1e6
+                    fl = {}
+                    if flags == "IPTA":
+                        fl = dict(fe=data.frontend, be=data.backend,
+                                  f=f"{data.frontend}_{data.backend}",
+                                  tmplt=self.modelfile, gof=1.0,
+                                  nbin=data.nbin, snr=float(snrs[ix]))
+                    if "chan" in attributes:
+                        fl["chan"] = int(ichan)
+                    if "subint" in attributes:
+                        fl["subint"] = int(isub)
+                    toa_objs.append(TOA(
+                        df, float(freqs[ichan]), toa_mjd, float(toa_err_us),
+                        data.telescope, data.telescope_code, flags=fl))
+                    flag_s = " ".join(f"-{k} {v}" for k, v in fl.items())
+                    lines.append(
+                        f"{df} {float(freqs[ichan]):.6f} "
+                        f"{toa_mjd.day_fracstr(15)} {toa_err_us:.3f} "
+                        f"{data.telescope_code} {flag_s}".rstrip())
+            self.psrchive_toas.append(lines)
+        return toa_objs

@@ -9,8 +9,15 @@ template spectrum resident on the card, for:
   * the (phi, DM) fit, B=64, on bench.py's data recipe (chip_smoke.py);
   * the scattering fit (phi, DM, tau, alpha), B=32, on
     scripts/tpu_scaling.py's --scat recipe (chip_smoke.py);
-each with the band-capped and the full-band template spectrum.  The
-data recipes are chip_smoke.py's own (phidm_recipe, scat_recipe).
+each with the band-capped and the full-band template spectrum; and for
+one narrowband subint (the first item of the scattering recipe, 4096
+channels as 4096 rows):
+  * fitters.phase_shift.fit_phase_shift_batch (FFTFIT: two rffts, the
+    brute-grid product, 7 launches of the merged-stream moments kernel);
+  * the per-channel scattering fits of get_narrowband_TOAs(fit_scat=True):
+    4096 single-channel (phi, tau) items in one fit_portrait_full_batch,
+    band-capped template, started from the FFTFIT phases.
+The data recipes are chip_smoke.py's own (phidm_recipe, scat_recipe).
 Prints, per case: the batch's unprofiled wall ms (host clock to a
 synchronize, median of 3) and its profiled wall ms (the profiler slows
 the host), device busy ms (the union of kernel intervals), the setup
@@ -76,7 +83,7 @@ def profile(run):
         dt = (e.time_range.end - e.time_range.start) / 1e3
         if "setup_kernel" in e.name or "seed_reduce_kernel" in e.name:
             by["setup"] += dt
-        elif "moments_kernel" in e.name:
+        elif "moments" in e.name and "kernel" in e.name:
             by["moments"] += dt
         else:
             by["other"] += dt
@@ -140,6 +147,35 @@ def main():
             log10_tau=True))
         out[f"scattering/{name}/B{B}"] = rec
         print(f"scattering {name} B={B}: {json.dumps(rec)}", flush=True)
+    # one narrowband subint: 4096 channels as rows / single-channel items
+    from pulseportraiture_tpu_torch.fitters.phase_shift import \
+        fit_phase_shift_batch
+    x = data[0].contiguous()
+    model_t = torch.as_tensor(model, **t32)
+    noise = torch.full((N,), cs.NOISE, **t32)
+    rec = profile(lambda: fit_phase_shift_batch(x, model_t, noise=noise))
+    out["narrowband/fftfit/rows4096"] = rec
+    print(f"narrowband fftfit rows={N}: {json.dumps(rec)}", flush=True)
+    mr, mi = on_card(cs.template_routes(model)["capped"])
+    nu = freqs.float()
+    init = torch.zeros((N, 5), **t32)
+    init[:, 0] = fit_phase_shift_batch(x, model_t, noise=noise).phase
+    init[:, 3] = torch.log10(0.5 * cs.TAU0 * (nu / 1500.0) ** cs.ALPHA0)
+    init[:, 4] = cs.ALPHA0
+    niter = []
+
+    def scat_items():
+        res = fit_portrait_full_batch(
+            x[:, None, :], (mr[:, None, :], mi[:, None, :]), init,
+            torch.full((N,), P, **t32), nu[:, None], noise[:, None],
+            nu_fits=nu[:, None].expand(N, 3), fit_flags=(1, 0, 0, 1, 0),
+            log10_tau=True, seed_phase=False)
+        niter.append(res.niter)
+    rec = profile(scat_items)
+    rec["max_niter"] = int(niter[-1].max())
+    rec["mean_niter"] = float(niter[-1].double().mean())
+    out["narrowband/fit_scat/items4096"] = rec
+    print(f"narrowband fit_scat items={N}: {json.dumps(rec)}", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -1,5 +1,5 @@
-"""The port stands alone: no file of pulseportraiture_tpu_torch/ and no line
-of chip_smoke.py imports the JAX package (pulseportraiture_tpu or any of
+"""The port stands alone: no file of pulseportraiture_tpu_torch/, no
+scripts/torch_*.py and no line of chip_smoke.py imports the JAX package (pulseportraiture_tpu or any of
 its modules), or jax.  Checked on the syntax tree, so imports inside
 functions count too.
 """
@@ -14,6 +14,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _port_files():
     out = [os.path.join(REPO, "chip_smoke.py")]
+    scripts = os.path.join(REPO, "scripts")
+    out += [os.path.join(scripts, f) for f in sorted(os.listdir(scripts))
+            if f.startswith("torch_") and f.endswith(".py")]
     for root, _, files in os.walk(os.path.join(REPO,
                                                "pulseportraiture_tpu_torch")):
         out += [os.path.join(root, f) for f in sorted(files)

@@ -269,3 +269,104 @@ def test_scattering_fit_on_card_matches_cpu_float64(cuda):
     for j in (0, 1, 3, 4):
         d = (g.params[:, j].double().cpu() - c.params[:, j]).abs()
         assert bool((d <= 1e-2 * c.param_errs[:, j]).all()), (j, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh,aligned", [(128, True), (1024, True),
+                                        (1025, True), (130, True),
+                                        (2049, True), (128, False)])
+def test_phase_moments_merged_kernel_matches_twin(cuda, nh, aligned):
+    """The merged-stream kernel against its float64 twin (the split
+    kernel's tolerance) and against the split kernel on the same data:
+    with 128-bit loads (nh a multiple of 4 on a 16-byte aligned base) the
+    sums are taken in another order, within float32 rounding of
+    sum |terms|; with scalar loads (other nh, or a misaligned base) in the
+    split kernel's order."""
+    rng = np.random.default_rng(nh + 11)
+    B, nchan = 3, 77
+    Gr = rng.normal(size=(B, nchan, nh)).astype(np.float32)
+    Gi = rng.normal(size=(B, nchan, nh)).astype(np.float32)
+    phis = rng.uniform(-3.0, 3.0, (B, nchan)).astype(np.float32)
+    merged = np.concatenate([Gr, Gi], axis=-1)
+    if aligned:
+        g = torch.from_numpy(merged).to(cuda)
+    else:       # a contiguous view that starts 4 bytes into its storage
+        buf = torch.zeros(merged.size + 1, dtype=torch.float32, device=cuda)
+        buf[1:] = torch.from_numpy(merged.ravel()).to(cuda)
+        g = buf[1:].view(B, nchan, 2 * nh)
+        assert g.is_contiguous() and g.data_ptr() % 16 != 0
+    p = torch.from_numpy(phis).to(cuda)
+    n0 = mom.phase_moments_merged.launches
+    got = mom.phase_moments_merged(p, g)
+    torch.cuda.synchronize()
+    assert mom.phase_moments_merged.launches == n0 + 1
+    ref = mom.phase_moments_merged_reference(p.double(), g.double())
+    split = mom.phase_moments(p, torch.from_numpy(Gr).to(cuda),
+                              torch.from_numpy(Gi).to(cuda))
+    k = np.arange(nh)
+    a = np.abs(Gr) + np.abs(Gi)
+    eps = np.finfo(np.float32).eps
+    for o, r, s, kp in zip(got, ref, split, (0, 1, 2)):
+        assert o.dtype == torch.float32 and o.shape == (B, nchan)
+        w = np.sum(a * k ** kp, axis=-1) * (2 * np.pi) ** kp
+        err = np.abs(o.double().cpu().numpy() - r.cpu().numpy())
+        assert np.all(err <= 2e-6 * (w + a.sum(-1))), (kp, err.max())
+        d = np.abs(o.double().cpu().numpy() - s.double().cpu().numpy())
+        assert np.all(d <= eps * w), (kp, d.max())
+
+
+@pytest.mark.cuda
+def test_phase_moments_merged_wrapper_refuses_what_it_does_not_take(cuda):
+    p = torch.zeros((1, 4), device=cuda)
+    g = torch.zeros((1, 4, 66), device=cuda)
+    with pytest.raises(TypeError):
+        mom.phase_moments_merged(p.double(), g.double())
+    with pytest.raises(ValueError):          # odd last axis: no [Gr | Gi]
+        mom.phase_moments_merged(p, g[..., :65].contiguous())
+    with pytest.raises(ValueError):          # phis of another shape
+        mom.phase_moments_merged(p[:, :3], g)
+    with pytest.raises(ValueError):          # nharm beyond the exact range
+        mom.phase_moments_merged(p, torch.zeros((1, 4, 10000), device=cuda))
+    with pytest.raises(ValueError):          # not contiguous
+        mom.phase_moments_merged(
+            p, torch.zeros((1, 66, 4), device=cuda).transpose(1, 2))
+    with pytest.raises(ValueError):          # a CPU phis for a card stream
+        mom.phase_moments_merged(p.cpu(), g)
+
+
+@pytest.mark.cuda
+def test_narrowband_fits_on_card_match_cpu_float64(cuda):
+    """FFTFIT and the six estimators on the card in float32 (the merged
+    kernel in their Newton steps) against the float64 twin route on the
+    CPU: shifts within 1e-2 of the formal error."""
+    from pulseportraiture_tpu_torch.fitters import arrival_time as at
+    from pulseportraiture_tpu_torch.fitters import phase_shift as ps
+    rng = np.random.default_rng(21)
+    nchan, nbin, noise = 96, 1024, 0.05
+    model, _ = _portrait(rng, 1, nchan, nbin)
+    shifts = rng.uniform(-0.4, 0.4, (nchan, 1))
+    k = 2j * np.pi * np.arange(nbin // 2 + 1)
+    data = np.fft.irfft(np.fft.rfft(model, axis=-1) * np.exp(-k * shifts),
+                        n=nbin, axis=-1) + rng.normal(0, noise,
+                                                      (nchan, nbin))
+
+    def args(dev, dt):
+        return (torch.as_tensor(data, dtype=dt, device=dev),
+                torch.as_tensor(model, dtype=dt, device=dev),
+                torch.full((nchan,), noise, dtype=dt, device=dev))
+
+    n0 = mom.phase_moments_merged.launches
+    g = ps.fit_phase_shift_batch(*args(cuda, torch.float32))
+    assert mom.phase_moments_merged.launches == n0 + 7     # 6 steps + 1
+    c = ps.fit_phase_shift_batch(*args(torch.device("cpu"), torch.float64))
+    z = (g.phase.double().cpu() - c.phase) / c.phase_err
+    assert float(z.abs().max()) < 1e-2
+    for alg in at.ALGORITHMS:
+        n0 = mom.phase_moments_merged.launches
+        g = at.arrival_time_shifts(*args(cuda, torch.float32), algorithm=alg)
+        if alg in ("PGS", "FDM", "SIS"):
+            assert mom.phase_moments_merged.launches == n0 + 9  # 8 + 1
+        c = at.arrival_time_shifts(*args(torch.device("cpu"),
+                                         torch.float64), algorithm=alg)
+        z = (g.shift.double().cpu() - c.shift) / c.shift_err
+        assert float(z.abs().max()) < 1e-2, alg

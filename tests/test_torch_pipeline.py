@@ -224,16 +224,18 @@ def test_cuda_device_without_a_card_raises(ws):
 
 
 def test_unported_options_raise(ws):
-    """What the port still refuses: GM, user output references (nu_refs),
-    mesh sharding and .gmodel templates, with or without fit_scat."""
+    """What the port still refuses: GM (its nu_zeros branches) and mesh
+    sharding, with or without fit_scat, each naming its ROADMAP item.
+    User output references and .gmodel templates no longer raise."""
     gt = toas.GetTOAs(ws["files"][:1], ws["fits"], device="cpu",
                       dtype=torch.float64, quiet=True)
     for kw in (dict(fit_GM=True), dict(fit_GM=True, fit_scat=True),
-               dict(nu_refs=(1400.0, 1400.0, 1400.0)),
-               dict(nu_refs=(None, None, 1400.0), fit_scat=True),
                dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             gt.get_TOAs(quiet=True, **kw)
+    gt.get_TOAs(quiet=True, nu_refs=(1400.0, 1400.0, 1400.0))
+    assert [t.frequency for t in gt.TOA_list] == [1400.0, 1400.0]
     gmodel = str(ws["path"] / "test.gmodel")
-    with pytest.raises(NotImplementedError):
-        toas.GetTOAs(ws["files"][:1], gmodel, device="cpu")
+    gg = toas.GetTOAs(ws["files"][:1], gmodel, device="cpu",
+                      dtype=torch.float64, quiet=True)
+    assert gg.model_source.kind == "gauss"
