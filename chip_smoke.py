@@ -10,10 +10,14 @@ parallel), then:
   2. holds each kernel against its plain torch twin on the card at 4096
      channels x 2048 bins (setup B=4: capped nh=128 with K=2 seed sums,
      full band nh=1025, int16+scale; phase moments B=32, phases in
-     [-3, 3] turns) and times both; the setup's error must also stay
-     within 4x of a cuBLAS float32 DFT-as-GEMM's, below a TF32-input
-     GEMM's; the setup also as the per-item route calls it, one item of
-     4096 rows without seed weights, nh=128 and 1025;
+     [-3, 3] turns) and times both; the setup runs on its FFT route
+     (csrc/setup_fft.cu) there, its error must also stay within 4x of a
+     cuBLAS float32 DFT-as-GEMM's, below a TF32-input GEMM's, and it is
+     timed beside that GEMM and beside torch.fft.rfft + cross-spectrum;
+     the setup also as the per-item route calls it, one item of 4096 rows
+     without seed weights, nh=128 and 1025; and the setup's SGEMM route
+     (csrc/setup.cu) at a width the FFT route does not take, 4096
+     channels x 1280 bins, capped and full band;
   3. the scattering-moments kernel against its float64 twin at B=32,
      nh=128 and 1025, phases in [-3, 3] turns, taus around
      8e-3 (nu/1500)^-4 rot over two decades: each of the 9 sums within
@@ -61,7 +65,9 @@ parallel), then:
  12. the (phi, DM) pipeline once more with a two-component .gmodel
      template written here: injected dDM within 3 sigma.
 Launch counts are reset before each pipeline run (the main paths) and
-read after it; every kernel of that path must have launched there.  The
+read after it; every kernel of that path must have launched there, and
+every setup launch of a path (all run at 2048 bins) must have taken the
+FFT route.  The
 line before last is a JSON summary of the kernels (times, the bound from
 this run's shapes, the library call's time); the last is {"ok": true,
 "device": ...}.  Exits non-zero without a card, or when any phase fails.
@@ -122,12 +128,19 @@ def setup_bound(B, nbin, nh, K, x_itemsize, scaled):
 
 
 def cuda_ms(fn, reps=10, warm=2):
-    """Mean milliseconds per call by CUDA events over reps launches."""
+    """Mean milliseconds per call by CUDA events over reps launches.  The
+    launches are queued while the card works off ~20 ms of matmul, so they
+    run back to back: a call the host takes 0.1 ms to make would otherwise
+    read 0.1 ms however short its kernel is."""
     import torch
     for _ in range(warm):
         fn()
+    if not hasattr(cuda_ms, "busy"):
+        cuda_ms.busy = torch.ones((8192, 8192), device="cuda")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.matmul(cuda_ms.busy, cuda_ms.busy)
     start.record()
     for _ in range(reps):
         fn()
@@ -136,17 +149,17 @@ def cuda_ms(fn, reps=10, warm=2):
     return start.elapsed_time(end) / reps
 
 
-def bench_template(freqs):
+def bench_template(freqs, nbin=NBIN):
     """bench.py's two-component template (nchan, nbin), float32."""
     import numpy as np
-    x = (np.arange(NBIN) + 0.5) / NBIN
+    x = (np.arange(nbin) + 0.5) / nbin
     prof = np.exp(-0.5 * ((x - 0.4) / 0.02) ** 2) + \
         0.4 * np.exp(-0.5 * ((x - 0.47) / 0.01) ** 2)
     return (prof[None, :] * (freqs[:, None] / 1500.0) ** -1.5).astype(
         np.float32)
 
 
-def shifted_data(mft, shifts, gen, noise, dev):
+def shifted_data(mft, shifts, gen, noise, dev, nbin=NBIN):
     """irfft(mft e^{-2 pi i k shift}) + N(0, noise) in f32 on the card;
     mft (nchan, nh) complex128, shifts (B, nchan) float64 [rot]."""
     import torch
@@ -155,7 +168,7 @@ def shifted_data(mft, shifts, gen, noise, dev):
     for s in shifts.split(8):
         ang = torch.remainder(s[..., None] * k, 1.0) * (2.0 * math.pi)
         spec = mft * torch.polar(torch.ones_like(ang), -ang)
-        d = torch.fft.irfft(spec, n=NBIN, dim=-1)
+        d = torch.fft.irfft(spec, n=nbin, dim=-1)
         d = d + noise * torch.randn(d.shape, generator=gen,
                                     dtype=torch.float64, device=dev)
         out.append(d.to(torch.float32))
@@ -266,6 +279,85 @@ def gemm_cross_spectrum(xx, E, mr, mi, sc, tf32_inputs=False):
     return Gr, Gi
 
 
+def rfft_cross_spectrum(xx, mr, mi, sc):
+    """(Gr, Gi) from torch.fft.rfft and the cross-spectrum: the setup
+    kernel's second library yardstick (cuFFT)."""
+    import torch
+    nh = mr.shape[-1]
+    X = torch.fft.rfft(xx.float(), dim=-1)[..., :nh]
+    if sc is not None:
+        X = X * sc[..., None]
+    Gr = X.real * mr + X.imag * mi
+    Gi = X.imag * mr - X.real * mi
+    Gr[..., 0] = 0.0
+    Gi[..., 0] = 0.0
+    return Gr, Gi
+
+
+def setup_gemm_route(dev):
+    """The setup's SGEMM route (csrc/setup.cu) against its float64 twin at
+    a width the FFT route does not take: 4096 channels x 1280 bins, B=4,
+    K=2, capped and full band (data from a seed of its own: the other
+    phases' draws stay what they were)."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu_torch.ops import setup_dft as sdft
+
+    nbin, B = 1280, 4
+    if sdft.setup_route(nbin, 2) != "gemm":
+        raise AssertionError(f"nbin={nbin} does not take the SGEMM route")
+    freqs = np.linspace(1100.0, 1900.0, NCHAN)
+    model = bench_template(freqs, nbin)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    mft = torch.fft.rfft(torch.as_tensor(model, dtype=torch.float64,
+                                         device=dev), dim=-1)
+    shifts = torch.as_tensor(np.random.default_rng(6).uniform(
+        -0.05, 0.05, (B, 1)), device=dev).expand(B, NCHAN)
+    x = shifted_data(mft, shifts, gen, NOISE, dev, nbin)
+    mf = np.fft.rfft(model.astype(np.float64), axis=-1)
+    mr_c, mi_c, mh = sdft.band_cap_model_ft(mf.real, mf.imag, nbin)
+    nh_c = sdft.cap_nharm(nbin, mh)
+    full = (mf.real.astype(np.float32), mf.imag.astype(np.float32))
+    full[0][:, 0] = 0.0
+    full[1][:, 0] = 0.0
+    wt = torch.ones((B, NCHAN, 2), dtype=torch.float32, device=dev)
+    wt[:, : NCHAN // 2, 1] = 0.0
+    rec = {}
+    for name, (mr, mi) in (("capped", (mr_c[:, :nh_c], mi_c[:, :nh_c])),
+                           ("full_band", full)):
+        mr_t = torch.from_numpy(np.ascontiguousarray(mr)).to(dev)
+        mi_t = torch.from_numpy(np.ascontiguousarray(mi)).to(dev)
+        g0 = sdft.fused_setup.routes["gemm"]
+        got = sdft.fused_setup(x, mr_t, mi_t, w=wt)
+        torch.cuda.synchronize()
+        if sdft.fused_setup.routes["gemm"] != g0 + 1:
+            raise AssertionError("the SGEMM route did not launch")
+        ref = sdft.fused_setup_reference(x, mr_t.double(), mi_t.double(),
+                                         w=wt.double())
+        gmax = max(float(ref[0].abs().max()), float(ref[1].abs().max()))
+        smax = max(float(ref[3].abs().max()), float(ref[4].abs().max()))
+        errs = [float((g.double() - r).abs().max())
+                for g, r in zip(got, ref)]
+        bounds = [2e-5 * gmax, 2e-5 * gmax, 2e-5 * float(ref[2].abs().max()),
+                  2e-5 * smax, 2e-5 * smax]
+        if any(e > b for e, b in zip(errs, bounds)):
+            raise AssertionError(f"setup SGEMM route[{name}] disagrees with "
+                                 f"its twin: {errs} > {bounds}")
+        ms = cuda_ms(lambda: sdft.fused_setup(x, mr_t, mi_t, w=wt))
+        plain = cuda_ms(lambda: sdft.fused_setup_reference(x, mr_t, mi_t,
+                                                           w=wt))
+        bnd, by = setup_bound(B, nbin, mr.shape[-1], 2, 4, False)
+        log(f"setup SGEMM route[{name}] nbin={nbin} nh={mr.shape[-1]} max "
+            f"abs err Gr/Gi/sd/gsr/gsi {errs} bounds {bounds}; kernel "
+            f"{ms:.4f} ms, plain (rfft twin) {plain:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}) (B={B})")
+        rec[name] = dict(nbin=nbin, nh=mr.shape[-1], max_abs_err=max(
+            errs[:2]), ms=ms, plain_ms=plain, library_ms=plain, bound_ms=bnd,
+            bound_by=by)
+    return rec
+
+
 def phase_kernels(dev, rng):
     """Kernel vs plain twin on the card; returns per-kernel records."""
     import numpy as np
@@ -305,8 +397,11 @@ def phase_kernels(dev, rng):
     for name, xx, (mr, mi), sc in cases:
         mr_t = torch.from_numpy(np.ascontiguousarray(mr)).to(dev)
         mi_t = torch.from_numpy(np.ascontiguousarray(mi)).to(dev)
+        f0 = sdft.fused_setup.routes["fft"]
         got = sdft.fused_setup(xx, mr_t, mi_t, w=wt, scale=sc)
         torch.cuda.synchronize()
+        if sdft.fused_setup.routes["fft"] != f0 + 1:
+            raise AssertionError(f"setup[{name}] did not take the FFT route")
         ref = sdft.fused_setup_reference(
             xx, mr_t.double(), mi_t.double(), w=wt.double(),
             scale=None if sc is None else sc.double())
@@ -341,13 +436,16 @@ def phase_kernels(dev, rng):
         plain = cuda_ms(lambda: sdft.fused_setup_reference(
             xx, mr_t, mi_t, w=wt, scale=sc))
         lib = cuda_ms(lambda: gemm_cross_spectrum(xx, E, mr_t, mi_t, sc))
+        lib_fft = cuda_ms(lambda: rfft_cross_spectrum(xx, mr_t, mi_t, sc))
         bnd, by = setup_bound(B, NBIN, mr.shape[-1], 2, xx.element_size(),
                               sc is not None)
         log(f"setup[{name}] kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"float32 GEMM library call {lib:.4f} ms, bound {bnd:.4f} ms "
-            f"({by}) (B={B})")
+            f"library calls: float32 GEMM {lib:.4f} ms, rfft + "
+            f"cross-spectrum {lib_fft:.4f} ms; bound {bnd:.4f} ms ({by}) "
+            f"(B={B})")
         rec[name] = dict(max_abs_err=max(errs[:2]), ms=ms, plain_ms=plain,
-                         library_ms=lib, bound_ms=bnd, bound_by=by)
+                         library_ms=min(lib, lib_fft), library_gemm_ms=lib,
+                         library_rfft_ms=lib_fft, bound_ms=bnd, bound_by=by)
 
     # what the per-item route of fit_portrait_full_batch gives the setup
     # (the narrowband fit_scat path): ONE item of 4096 rows, each against
@@ -358,8 +456,11 @@ def phase_kernels(dev, rng):
                            ("one_item_full_band", full)):
         mr_t = torch.from_numpy(np.ascontiguousarray(mr)).to(dev)
         mi_t = torch.from_numpy(np.ascontiguousarray(mi)).to(dev)
+        f0 = sdft.fused_setup.routes["fft"]
         got = sdft.fused_setup(x1, mr_t, mi_t)
         torch.cuda.synchronize()
+        if sdft.fused_setup.routes["fft"] != f0 + 1:
+            raise AssertionError(f"setup[{name}] did not take the FFT route")
         ref = sdft.fused_setup_reference(x1, mr_t.double(), mi_t.double())
         if len(got) != 3 or len(ref) != 3:
             raise AssertionError(f"setup[{name}] returned seed sums without "
@@ -506,6 +607,7 @@ def phase_fit(dev):
 
     out = {}
     sd0, mm0 = sdft.fused_setup.launches, mom.phase_moments.launches
+    fft0 = sdft.fused_setup.routes["fft"]
     for name, mft_ri in routes.items():
         def run():
             return fit_portrait_full_batch(
@@ -566,6 +668,9 @@ def phase_fit(dev):
         f"phase_moments {launches[1]}")
     if min(launches) <= 0:
         raise AssertionError("a kernel did not launch in the fit phase")
+    if sdft.fused_setup.routes["fft"] - fft0 != launches[0]:
+        raise AssertionError("a setup launch of the fit phase left the FFT "
+                             "route")
     return out
 
 
@@ -730,6 +835,7 @@ def reset_launches():
     from pulseportraiture_tpu_torch.ops import moments as mom
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
     sdft.fused_setup.launches = 0
+    sdft.fused_setup.routes = {"fft": 0, "gemm": 0}
     mom.phase_moments.launches = 0
     mom.scattering_moments.launches = 0
     mom.phase_moments_merged.launches = 0
@@ -739,6 +845,7 @@ def read_launches():
     from pulseportraiture_tpu_torch.ops import moments as mom
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
     return {"fused_setup": sdft.fused_setup.launches,
+            "fused_setup_routes": dict(sdft.fused_setup.routes),
             "phase_moments": mom.phase_moments.launches,
             "scattering_moments": mom.scattering_moments.launches,
             "phase_moments_merged": mom.phase_moments_merged.launches}
@@ -1152,6 +1259,7 @@ def main():
             log("ptxas: " + line.strip())
     rng = np.random.default_rng(0)
     krec = phase_kernels(dev, rng)
+    grec = setup_gemm_route(dev)
     srec = phase_scat_kernel(dev)
     mrec = phase_merged_kernel(dev)
     fits = phase_fit(dev)
@@ -1172,6 +1280,12 @@ def main():
         paths["pipeline_gmodel"] = phase_pipeline_gmodel(nb_files, nb_dDMs)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+    # every path runs at 2048 bins: its setup launches are the FFT route's
+    for path, c in paths.items():
+        if c["fused_setup_routes"]["fft"] != c["fused_setup"]:
+            raise AssertionError(f"{path}: fused_setup launched "
+                                 f"{c['fused_setup']} times, the FFT route "
+                                 f"{c['fused_setup_routes']}")
 
     def entry(name, source, replaces, also, rec, extra):
         by_path = {p: c[name] for p, c in paths.items()}
@@ -1185,12 +1299,20 @@ def main():
 
     tpu = "pulseportraiture_tpu/ops/"
     summary = {"kernels": [
-        entry("fused_setup", "pulseportraiture_tpu_torch/csrc/setup.cu",
+        entry("fused_setup", "pulseportraiture_tpu_torch/csrc/setup_fft.cu",
               tpu + "ct_dft.py:430", [tpu + "ct_dft.py:804"],
               krec["capped"],
-              {name: krec[name] for name in (
+              dict({name: krec[name] for name in (
                   "full_band", "i16", "one_item_capped",
-                  "one_item_full_band")}),
+                  "one_item_full_band")},
+                   routes_by_path={p: c["fused_setup_routes"]
+                                   for p, c in paths.items()},
+                   second_route=dict(
+                       route="cuda",
+                       source="pulseportraiture_tpu_torch/csrc/setup.cu",
+                       taken_when="nbin is not a power of two in 128..4096 "
+                                  "(or more than 4 seed columns)",
+                       **grec))),
         entry("phase_moments", "pulseportraiture_tpu_torch/csrc/moments.cu",
               tpu + "pallas_moments.py:323",
               [tpu + "pallas_moments.py:262", tpu + "pallas_moments.py:186"],

@@ -22,9 +22,9 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-_SOURCES = ("setup.cu", "moments.cu", "scat_moments.cu",
+_SOURCES = ("setup.cu", "setup_fft.cu", "moments.cu", "scat_moments.cu",
             "moments_merged.cu")
-_HEADERS = ("phase_trig.cuh",)
+_HEADERS = ("phase_trig.cuh", "fft_passes.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas=-v")
 BUILD_DIR = _PKG.parent / "build" / "pp_kernels"
@@ -55,6 +55,10 @@ def _declare(lib):
                                    vp, vp, vp, vp, vp, vp, i32, i32, i32,
                                    i32, i32, vp]
     lib.pp_fused_setup.restype = i32
+    lib.pp_fused_setup_fft.argtypes = [vp, i32, vp, i32, vp, vp, vp, vp, i32,
+                                       vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                                       i32, i32, i32, i32, vp]
+    lib.pp_fused_setup_fft.restype = i32
     lib.pp_scat_moments.argtypes = [vp, vp, vp, vp, vp, vp, i64, i64, i32,
                                     vp]
     lib.pp_scat_moments.restype = i32

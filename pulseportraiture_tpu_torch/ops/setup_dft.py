@@ -8,19 +8,42 @@ nh = mr.shape[-1] harmonics (natural order):
     sd = sum_{k >= 1} |X_k|^2 over ALL harmonics (+ |X_0|^2 with f0_fact)
     gs[b, kk] = sum_c w[b, c, kk] G[b, c]    (with stacked seed weights)
 
-Kernel note (csrc/setup.cu, `pp_fused_setup`):
-  * Replaces the Pallas TPU kernels pulseportraiture_tpu/ops/ct_dft.py
-    `pallas_direct_setup` (`_direct_kernel_factory`, the capped route)
-    and `ct_setup` (`_ct_setup_kernel_factory`, the full band): with
-    natural-order harmonics the capped set is a prefix, so one kernel
-    serves both with nh = NQ*M' or nbin/2 + 1.
-  * Bound on the H100: FP32 FMA throughput of the DFT (4 nbin nh flops
-    per channel); the data are read once.
+Two hand-written CUDA routes compute it on the card, chosen by shape
+(setup_route); both replace the Pallas TPU kernels
+pulseportraiture_tpu/ops/ct_dft.py `pallas_direct_setup`
+(`_direct_kernel_factory`, the capped route) and `ct_setup`
+(`_ct_setup_kernel_factory`, the full band): with natural-order
+harmonics the capped set is a prefix, so one kernel serves both with
+nh = NQ*M' or nbin/2 + 1.
+
+Kernel note (csrc/setup_fft.cu, `pp_fused_setup_fft`; nbin a power of two
+in 128..4096, at most 4 seed columns):
+  * Bound on the H100: bytes.  An FFT needs 2.5 nbin log2(nbin) flops
+    per row against nbin * itemsize bytes read, so the data read (once)
+    and Gr/Gi written set the least time; tensor cores are not used.
+  * Design: a block takes a tile of consecutive channels of one item.
+    Each row arrives in a shared-memory ring by cp.async.bulk (completion
+    on an mbarrier) and is transformed there as an nbin/2-point complex
+    Stockham FFT of the packed row z_j = x_2j + i x_2j+1 by a worker of
+    nbin/32 threads, 16 points each in registers, in passes of radix 16,
+    16 and 2, 4 or 8 (csrc/fft_passes.cuh).  sd is the power of the
+    packed spectrum (which is sum |X_k|^2), summed from those registers
+    in a fixed order.  The block then untangles its rows into the real
+    transform's harmonics where the model has them and writes Gr/Gi;
+    seed partial sums stay in registers over the tile, and a second,
+    fixed-order pass adds the tiles (no float atomics: the same bits on
+    every run).  Twiddles come from a host float64 -> float32 table
+    (_fft_tables_np), never from sincosf.
+  * fused_setup_fft_reference is the plain torch version of this
+    algorithm (same passes, same table, same sd), for the tests.
+
+Kernel note (csrc/setup.cu, `pp_fused_setup`; every other nbin):
+  * Bound: FP32 FMA throughput of a DFT-as-SGEMM (4 nbin nh flops per
+    channel), 150x the factored transform's arithmetic at nbin 2048.
   * Design: a tiled FP32-FMA SGEMM against a host f64 -> f32 trig slab
-    that stays L2-resident (2 MB capped, 17 MB full band at nbin 2048),
-    with the cross-spectrum, Parseval data power and seed partial sums
-    fused into the epilogue; the seed sums reduce over channel tiles in
-    a second, fixed-order pass (no float atomics).
+    that stays L2-resident, with the cross-spectrum, Parseval data power
+    and seed partial sums fused into the epilogue; the seed sums reduce
+    over channel tiles in a second, fixed-order pass.
 
 Host helpers band_cap_model_ft / suggest_mharm keep the JAX package's
 cap rule (NH = NQ*M', M' a multiple of 8), so both packages keep the
@@ -97,11 +120,10 @@ def band_cap_model_ft(mr, mi, nbin, rel_floor=1e-6, f0_fact=None):
     return mr, mi, suggest_mharm(mr, mi, nbin)
 
 
-def fused_setup_reference(x, mr, mi, f0_fact=False, w=None, scale=None):
-    """Plain torch twin of the setup kernel, in mr's dtype (rfft based)."""
+def _cross_spectrum(X, mr, mi, f0_fact, w, scale):
+    """The setup's outputs from the data spectrum X (..., nbin/2 + 1)."""
     dt = mr.dtype
     nh = mr.shape[-1]
-    X = torch.fft.rfft(x.to(dt), dim=-1)
     if scale is not None:
         X = X * scale.to(dt)[..., None]
     Xr, Xi = X.real, X.imag
@@ -123,6 +145,163 @@ def fused_setup_reference(x, mr, mi, f0_fact=False, w=None, scale=None):
     return Gr, Gi, sd, gsr, gsi
 
 
+def fused_setup_reference(x, mr, mi, f0_fact=False, w=None, scale=None):
+    """Plain torch twin of the setup kernels, in mr's dtype (rfft based)."""
+    X = torch.fft.rfft(x.to(mr.dtype), dim=-1)
+    return _cross_spectrum(X, mr, mi, f0_fact, w, scale)
+
+
+# what csrc/setup_fft.cu takes: one block holds a row of nbin samples, its
+# two nbin/2-point work buffers and the twiddle tables in shared memory,
+# and keeps the seed sums of at most 4 weight columns in registers
+FFT_MIN_NBIN, FFT_MAX_NBIN, FFT_MAX_SEEDS = 128, 4096, 4
+_FFT_SLOTS = 2        # ring slots per row in flight (3 costs a block per SM)
+
+
+def _fft_rows(B: int, nchan: int, nsm: int) -> int:
+    """Channels per block of csrc/setup_fft.cu (the tile of the seed
+    partial sums): the largest power of two in 8..64 that still fills
+    nine tenths of the card's block slots, two to an SM.  A larger tile
+    spreads a block's start-up over more rows; a card left half empty
+    costs more."""
+    rows = 64
+    while rows > 8 and B * -(-nchan // rows) < 1.8 * nsm:
+        rows //= 2
+    return rows
+
+
+def setup_route(nbin: int, kseed: int = 0) -> str:
+    """Which hand-written kernel fused_setup launches on a CUDA tensor:
+    "fft" (csrc/setup_fft.cu) when nbin is a power of two in
+    FFT_MIN_NBIN..FFT_MAX_NBIN and there are at most FFT_MAX_SEEDS seed
+    columns, else "gemm" (csrc/setup.cu: odd nbin, 768, 1280, ...)."""
+    pow2 = nbin > 0 and nbin & (nbin - 1) == 0
+    if pow2 and FFT_MIN_NBIN <= nbin <= FFT_MAX_NBIN and \
+            kseed <= FFT_MAX_SEEDS:
+        return "fft"
+    return "gemm"
+
+
+@functools.lru_cache(maxsize=8)
+def _twiddles_np(nbin: int):
+    """e^{-2 pi i j/nbin} for j < nbin, complex128, exact at the multiples
+    of nbin/4 (nbin a multiple of 4)."""
+    ang = 2.0 * np.pi * np.arange(nbin, dtype=np.float64) / nbin
+    tw = np.cos(ang) - 1j * np.sin(ang)
+    tw[::nbin // 4] = (1.0, -1.0j, -1.0, 1.0j)
+    return tw
+
+
+def _fft_passes(nz: int):
+    """(radix, p) of each pass of csrc/fft_passes.cuh's nz-point Stockham
+    FFT, p the product of the earlier radices: radix 16, radix 16 again
+    while 16 divides what is left, then one pass of radix 2, 4 or 8."""
+    passes, p = [], 1
+    while nz // p >= 16 and len(passes) < 2:
+        passes.append((16, p))
+        p *= 16
+    if p < nz:
+        passes.append((nz // p, p))
+    return passes
+
+
+@functools.lru_cache(maxsize=8)
+def _fft_tables_np(nbin: int):
+    """The twiddles of csrc/setup_fft.cu, complex128, in its order: for
+    each pass (R, p) with p > 1 the runs r = 1 .. R-1 of e^{-2 pi i r
+    k/(R p)}, k < p; then W^k = e^{-2 pi i k/nbin} for k <= nbin/4.  Every
+    entry is one of _twiddles_np(nbin): the index is reduced mod nbin in
+    integers, the value built in float64 (the kernel's copy is its
+    float32 cast)."""
+    tw = _twiddles_np(nbin)
+    nz = nbin // 2
+    runs = []
+    for R, p in _fft_passes(nz):
+        k = np.arange(p, dtype=np.int64)
+        for r in range(1, R if p > 1 else 1):
+            runs.append(tw[(r * k * (nbin // (R * p))) % nbin])
+    runs.append(tw[:nz // 2 + 1])
+    return np.concatenate(runs)
+
+
+@functools.lru_cache(maxsize=4)
+def _fft_tables(nbin: int, device: str):
+    t = _fft_tables_np(nbin)
+    return torch.from_numpy(np.stack([t.real, t.imag], axis=-1).astype(
+        np.float32)).to(device)
+
+
+def _stockham_fft(z, tables):
+    """The kernel's nz-point complex FFT of z (..., nz), pass by pass:
+    butterfly i < nz/R of a pass (R, p) takes the points i + r nz/R,
+    twiddles point r by tables' e^{-2 pi i r k/(R p)} (k = i mod p),
+    transforms them and writes result m to (i - k) R + k + m p.  tables:
+    _fft_tables_np(2 nz) in z's dtype."""
+    nz = z.shape[-1]
+    lead = z.shape[:-1]
+    tw = _twiddles_np(2 * nz)
+    off = 0
+    for R, p in _fft_passes(nz):
+        T = nz // R
+        i = torch.arange(T)
+        k = i & (p - 1)
+        u = z.reshape(*lead, R, T)
+        if p > 1:
+            t = tables[off:off + (R - 1) * p].reshape(R - 1, p)[:, k]
+            u = torch.cat([u[..., :1, :], u[..., 1:, :] * t], dim=-2)
+            off += (R - 1) * p
+        m = np.arange(R)
+        dft = torch.from_numpy(tw[(np.outer(m, m) * (2 * nz // R)) %
+                                  (2 * nz)]).to(z.dtype)
+        y = torch.einsum("mr,...rt->...mt", dft, u)
+        j = (i - k) * R + k
+        out = torch.empty_like(z)
+        for mm in range(R):
+            out[..., j + mm * p] = y[..., mm, :]
+        z = out
+    return z
+
+
+def fused_setup_fft_reference(x, mr, mi, f0_fact=False, w=None, scale=None):
+    """Plain torch version of csrc/setup_fft.cu's own algorithm, in mr's
+    dtype: the packed row's half-length Stockham FFT, the untangling step
+    on the pairs (k, nbin/2 - k) with the kernel's twiddle table, the
+    kernel's sd from the packed spectrum, then the twin's cross-spectrum
+    and seed sums.  For the tests (packing, indices, table, int16)."""
+    dt = mr.dtype
+    nbin = x.shape[-1]
+    if setup_route(nbin) != "fft":
+        raise ValueError(f"the FFT route does not take nbin={nbin}")
+    nz = nbin // 2
+    ct = torch.complex128 if dt == torch.float64 else torch.complex64
+    tb = _fft_tables_np(nbin)
+    tables = torch.complex(torch.from_numpy(tb.real.copy()).to(dt),
+                           torch.from_numpy(tb.imag.copy()).to(dt))
+    xx = x.to(dt).contiguous()
+    Z = _stockham_fft(torch.view_as_complex(
+        xx.reshape(*xx.shape[:-1], nz, 2)), tables)
+    k = torch.arange(nz // 2)
+    zk, zq = Z[..., k], Z[..., (nz - k) & (nz - 1)].conj()
+    E, O = 0.5 * (zk + zq), 0.5 * (zk - zq)
+    Tw = tables[len(tb) - (nz // 2 + 1):][k] * O
+    X = torch.empty(Z.shape[:-1] + (nz + 1,), dtype=ct)
+    X[..., k] = E - 1j * Tw
+    X[..., nz - k] = E.conj() - 1j * Tw.conj()
+    X[..., nz // 2] = Z[..., nz // 2].conj()
+    out = list(_cross_spectrum(X, mr, mi, f0_fact, w, scale))
+    # the kernel's data power, from the packed spectrum: the pair (X_k,
+    # X_{nz-k}) carries the power of (Z_k, Z_{nz-k}); Z_0 = a + i b holds
+    # X_0 = a + b and the Nyquist term a - b
+    sd = torch.sum(Z[..., 1:].real ** 2 + Z[..., 1:].imag ** 2, dim=-1) + \
+        (Z[..., 0].real - Z[..., 0].imag) ** 2
+    if f0_fact:
+        sd = sd + (Z[..., 0].real + Z[..., 0].imag) ** 2
+    if scale is not None:
+        sd = sd * scale.to(dt) ** 2
+    out[2] = sd
+    return tuple(out)
+
+
 def fused_setup(x, mr, mi, f0_fact=False, w=None, scale=None):
     """(Gr, Gi, sd[, gsr, gsi]) for data x (B, nchan, nbin) against the
     shared model spectrum mr/mi (nchan, nh).
@@ -130,8 +309,9 @@ def fused_setup(x, mr, mi, f0_fact=False, w=None, scale=None):
     scale: (B, nchan) dequantization for int16 x (requires f0_fact
     falsy: per-channel offsets only feed the dropped DC harmonic).
     w: stacked seed weights (B, nchan, K); gsr/gsi are (B, K, nh).
-    CPU tensors take the plain twin; CUDA tensors launch the kernel (or
-    raise).
+    CPU tensors take the plain twin; CUDA tensors launch the kernel that
+    setup_route names for their shape (or raise).  fused_setup.launches
+    counts the launches, fused_setup.routes each route's.
     """
     if scale is not None and f0_fact:
         raise ValueError("int16 ingest drops per-channel offsets into the "
@@ -140,10 +320,14 @@ def fused_setup(x, mr, mi, f0_fact=False, w=None, scale=None):
         return fused_setup_reference(x, mr, mi, f0_fact, w, scale)
     if x.device.type != "cuda":
         raise ValueError(f"fused_setup: unsupported device {x.device}")
-    return _launch(x, mr, mi, bool(f0_fact), w, scale)
+    kseed = _check(x, mr, mi, w, scale)
+    if setup_route(x.shape[-1], kseed) == "fft":
+        return _launch_fft(x, mr, mi, bool(f0_fact), w, scale)
+    return _launch_gemm(x, mr, mi, bool(f0_fact), w, scale)
 
 
 fused_setup.launches = 0
+fused_setup.routes = {"fft": 0, "gemm": 0}
 
 
 @functools.lru_cache(maxsize=8)
@@ -166,9 +350,8 @@ def _trig_slab(nbin: int, nh: int, device: str):
     return torch.from_numpy(_trig_slab_np(nbin, nh)).to(device)
 
 
-def _launch(x, mr, mi, f0_fact, w, scale):
-    from pulseportraiture_tpu_torch._build import load_kernels
-
+def _check(x, mr, mi, w, scale):
+    """Raise on what neither kernel takes; returns the seed column count."""
     dev = x.device
     if x.dim() != 3:
         raise ValueError(f"fused_setup: x must be (B, nchan, nbin), got "
@@ -207,36 +390,97 @@ def _launch(x, mr, mi, f0_fact, w, scale):
         if not t.is_contiguous():
             raise ValueError(f"fused_setup kernel: {name} must be "
                              "contiguous")
-    slab = _trig_slab(nbin, nh, str(dev))
-    ncolp = slab.shape[1]
-    f32 = dict(dtype=torch.float32, device=dev)
-    Gr = torch.empty((B, nchan, nh), **f32)
-    Gi = torch.empty((B, nchan, nh), **f32)
-    sd = torch.empty((B, nchan), **f32)
-    part = gsr = gsi = None
+    return kseed
+
+
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _outputs(x, nh, kseed):
+    B, nchan, _ = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    out = [torch.empty((B, nchan, nh), **f32),
+           torch.empty((B, nchan, nh), **f32), torch.empty((B, nchan), **f32)]
     if kseed:
-        ntile = -(-nchan // 64)
-        part = torch.empty((B, ntile, kseed, ncolp), **f32)
-        gsr = torch.empty((B, kseed, nh), **f32)
-        gsi = torch.empty((B, kseed, nh), **f32)
+        out += [torch.empty((B, kseed, nh), **f32),
+                torch.empty((B, kseed, nh), **f32)]
+    return out
+
+
+def _launched(err, lib, entry, route):
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err} "
+                           f"({lib.pp_error_string(err).decode()})")
+    fused_setup.launches += 1
+    fused_setup.routes[route] += 1
+
+
+def _launch_gemm(x, mr, mi, f0_fact, w, scale):
+    """csrc/setup.cu on checked arguments (_check)."""
+    from pulseportraiture_tpu_torch._build import load_kernels
+
+    B, nchan, nbin = x.shape
+    nh = mr.shape[-1]
+    kseed = 0 if w is None else w.shape[-1]
+    slab = _trig_slab(nbin, nh, str(x.device))
+    ncolp = slab.shape[1]
+    out = _outputs(x, nh, kseed)
+    part = None
+    if kseed:
+        part = torch.empty((B, -(-nchan // 64), kseed, ncolp),
+                           dtype=torch.float32, device=x.device)
     if B * nchan:
         lib = load_kernels()
-
-        def ptr(t):
-            return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pp_fused_setup(
-            ptr(x), ctypes.c_int(int(x.dtype == torch.int16)), ptr(slab),
-            ctypes.c_int(ncolp), ptr(mr), ptr(mi), ptr(scale), ptr(w),
-            ctypes.c_int(kseed), ptr(Gr), ptr(Gi), ptr(sd), ptr(part),
-            ptr(gsr), ptr(gsi), ctypes.c_int(B), ctypes.c_int(nchan),
-            ctypes.c_int(nbin), ctypes.c_int(nh), ctypes.c_int(int(f0_fact)),
-            ctypes.c_void_p(stream))
-        if err != 0:
-            raise RuntimeError(f"pp_fused_setup launch failed: CUDA error "
-                               f"{err} ({lib.pp_error_string(err).decode()})")
-        fused_setup.launches += 1
+            _ptr(x), ctypes.c_int(int(x.dtype == torch.int16)), _ptr(slab),
+            ctypes.c_int(ncolp), _ptr(mr), _ptr(mi), _ptr(scale), _ptr(w),
+            ctypes.c_int(kseed), *map(_ptr, out[:3]), _ptr(part),
+            *map(_ptr, out[3:] or (None, None)), ctypes.c_int(B),
+            ctypes.c_int(nchan), ctypes.c_int(nbin), ctypes.c_int(nh),
+            ctypes.c_int(int(f0_fact)),
+            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        _launched(err, lib, "pp_fused_setup", "gemm")
+    return tuple(out)
+
+
+def _launch_fft(x, mr, mi, f0_fact, w, scale, rows=None, slots=_FFT_SLOTS):
+    """csrc/setup_fft.cu on checked arguments (_check): rows channels per
+    block (default: _fft_rows), slots ring slots per row in flight.  The
+    bulk copies need a 16-byte aligned x (a row of nbin >= 128 samples is
+    a multiple of 16 bytes)."""
+    from pulseportraiture_tpu_torch._build import load_kernels
+
+    B, nchan, nbin = x.shape
+    if rows is None:
+        rows = _fft_rows(B, nchan, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
+    nh = mr.shape[-1]
+    kseed = 0 if w is None else w.shape[-1]
+    if setup_route(nbin, kseed) != "fft":
+        raise ValueError(f"the FFT setup kernel does not take nbin={nbin} "
+                         f"with {kseed} seed columns")
+    if x.data_ptr() % 16:
+        raise ValueError("fused_setup kernel: x must start on a 16-byte "
+                         "boundary (an offset view does not)")
+    if B > 65535:
+        raise ValueError(f"fused_setup kernel: B={B} above 65535 items")
+    tw = _fft_tables(nbin, str(x.device))
+    out = _outputs(x, nh, kseed)
+    part = None
     if kseed:
-        return Gr, Gi, sd, gsr, gsi
-    return Gr, Gi, sd
+        part = torch.empty((B, -(-nchan // rows), kseed, 2, nh),
+                           dtype=torch.float32, device=x.device)
+    if B * nchan:
+        lib = load_kernels()
+        err = lib.pp_fused_setup_fft(
+            _ptr(x), ctypes.c_int(int(x.dtype == torch.int16)), _ptr(tw),
+            ctypes.c_int(tw.shape[0]), _ptr(mr), _ptr(mi), _ptr(scale),
+            _ptr(w), ctypes.c_int(kseed), *map(_ptr, out[:3]), _ptr(part),
+            *map(_ptr, out[3:] or (None, None)), ctypes.c_int(B),
+            ctypes.c_int(nchan), ctypes.c_int(nbin), ctypes.c_int(nh),
+            ctypes.c_int(int(f0_fact)), ctypes.c_int(rows),
+            ctypes.c_int(slots),
+            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        _launched(err, lib, "pp_fused_setup_fft", "fft")
+    return tuple(out)

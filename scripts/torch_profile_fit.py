@@ -21,7 +21,8 @@ The data recipes are chip_smoke.py's own (phidm_recipe, scat_recipe).
 Prints, per case: the batch's unprofiled wall ms (host clock to a
 synchronize, median of 3) and its profiled wall ms (the profiler slows
 the host), device busy ms (the union of kernel intervals), the setup
-kernel's, the moments kernel's and all other kernels' ms, the kernel
+kernels' (either route, with their seed reduction), the moments kernel's
+and all other kernels' ms, the kernel
 launch count, and the idle share 1 - busy/wall against each wall
 (idle_share: the unprofiled wall; idle_share_profiled).  Needs a card.
 """
@@ -81,7 +82,7 @@ def profile(run):
     by = {"setup": 0.0, "moments": 0.0, "other": 0.0}
     for e in kernels:
         dt = (e.time_range.end - e.time_range.start) / 1e3
-        if "setup_kernel" in e.name or "seed_reduce_kernel" in e.name:
+        if "setup_" in e.name or "seed_reduce" in e.name:
             by["setup"] += dt
         elif "moments" in e.name and "kernel" in e.name:
             by["moments"] += dt

@@ -97,18 +97,23 @@ def test_scattering_moments_kernel_matches_twin(cuda, nh, shared_m2):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nbin,capped,i16,f0_fact,nchan,seeds", [
-    (512, True, False, False, 70, True),
-    (512, False, False, False, 70, True),
-    (512, True, True, False, 64, True),
-    (2048, False, True, False, 130, True),
-    (2048, True, False, True, 33, True),
-    (256, False, False, True, 5, True),
-    (255, False, False, False, 7, False),    # odd nbin: no Nyquist term
-    (512, True, True, False, 64, False),
+@pytest.mark.parametrize("nbin,capped,i16,f0_fact,nchan,seeds,route", [
+    (512, True, False, False, 70, True, "fft"),
+    (512, False, False, False, 70, True, "fft"),
+    (512, True, True, False, 64, True, "fft"),
+    (2048, False, True, False, 130, True, "fft"),
+    (2048, True, False, True, 33, True, "fft"),
+    (256, False, False, True, 5, True, "fft"),
+    (255, False, False, False, 7, False, "gemm"),  # odd nbin: no Nyquist term
+    (512, True, True, False, 64, False, "fft"),
+    (768, True, False, False, 70, True, "gemm"),   # 6 x 128: caps, no FFT
+    (4096, False, False, False, 33, True, "fft"),
+    (4096, True, True, False, 70, False, "fft"),
+    (128, False, False, True, 33, True, "fft"),
+    (2048, True, True, False, 130, True, "fft"),   # ragged last tile, int16
 ])
 def test_fused_setup_kernel_matches_twin(cuda, nbin, capped, i16, f0_fact,
-                                         nchan, seeds):
+                                         nchan, seeds, route):
     rng = np.random.default_rng(nbin + nchan)
     B = 3
     model, data = _portrait(rng, B, nchan, nbin)
@@ -131,11 +136,15 @@ def test_fused_setup_kernel_matches_twin(cuda, nbin, capped, i16, f0_fact,
            for a in (x, mr, mi, w)]
     sc = None if scale is None else torch.from_numpy(scale).to(cuda)
     wt = dev[3] if seeds else None
-    n0 = sdft.fused_setup.launches
+    assert sdft.setup_route(nbin, 2 if seeds else 0) == route
+    n0, r0 = sdft.fused_setup.launches, dict(sdft.fused_setup.routes)
     got = sdft.fused_setup(dev[0], dev[1], dev[2], f0_fact=f0_fact, w=wt,
                            scale=sc)
     torch.cuda.synchronize()
     assert sdft.fused_setup.launches == n0 + 1
+    other = "gemm" if route == "fft" else "fft"
+    assert sdft.fused_setup.routes[route] == r0[route] + 1
+    assert sdft.fused_setup.routes[other] == r0[other]
     assert len(got) == (5 if seeds else 3)
     ref = sdft.fused_setup_reference(
         dev[0], dev[1].double(), dev[2].double(), f0_fact=f0_fact,
@@ -150,6 +159,33 @@ def test_fused_setup_kernel_matches_twin(cuda, nbin, capped, i16, f0_fact,
                  "gsr": 2e-5 * smax, "gsi": 2e-5 * smax}.get(name,
                                                           2e-5 * gmax)
         assert err <= bound, (name, err, bound)
+    if route == "fft":
+        # no float atomics, fixed summation orders: the same bits again
+        again = sdft.fused_setup(dev[0], dev[1], dev[2], f0_fact=f0_fact,
+                                 w=wt, scale=sc)
+        torch.cuda.synchronize()
+        for name, g, a in zip(names, got, again):
+            assert torch.equal(g, a), name
+
+
+@pytest.mark.cuda
+def test_fused_setup_routes_agree_on_the_card(cuda):
+    """The two hand-written kernels on the same power-of-two input (the
+    SGEMM kernel through its private launcher): the same function."""
+    rng = np.random.default_rng(9)
+    B, nchan, nbin = 2, 70, 1024
+    model, data = _portrait(rng, B, nchan, nbin)
+    mf = np.fft.rfft(model, axis=-1)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (
+        data, mf.real.astype(np.float32), mf.imag.astype(np.float32),
+        rng.uniform(0.5, 2.0, (B, nchan, 2)).astype(np.float32))]
+    assert sdft._check(*t, None) == 2
+    fft = sdft._launch_fft(t[0], t[1], t[2], False, t[3], None)
+    gemm = sdft._launch_gemm(t[0], t[1], t[2], False, t[3], None)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("Gr", "Gi", "sd", "gsr", "gsi"), fft, gemm):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 2e-5 * scale, name
 
 
 @pytest.mark.cuda
@@ -158,6 +194,15 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
     m = torch.zeros((4, 129), dtype=torch.float32, device=cuda)
     with pytest.raises(TypeError):
         sdft.fused_setup(x, m, m)
+    # the FFT route's bulk copies need a 16-byte aligned x: a contiguous
+    # view that starts 4 bytes into its storage is refused, not rerouted
+    buf = torch.zeros(4 * 256 + 1, dtype=torch.float32, device=cuda)
+    off = buf[1:].view(1, 4, 256)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    n0 = sdft.fused_setup.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        sdft.fused_setup(off, m, m)
+    assert sdft.fused_setup.launches == n0
     with pytest.raises(TypeError):
         mom.phase_moments(torch.zeros((1, 4), dtype=torch.float64,
                                       device=cuda), m[None].double(),
