@@ -305,7 +305,7 @@ def setup_gemm_route(dev):
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
 
     nbin, B = 1280, 4
-    if sdft.setup_route(nbin, 2) != "gemm":
+    if sdft.setup_route(nbin) != "gemm":
         raise AssertionError(f"nbin={nbin} does not take the SGEMM route")
     freqs = np.linspace(1100.0, 1900.0, NCHAN)
     model = bench_template(freqs, nbin)
@@ -1254,9 +1254,16 @@ def main():
     _build.load_kernels()
     log(f"kernel build: {_build.build_info['seconds']:.2f} s (cached: "
         f"{_build.build_info['cached']})")
+    entry = ""
     for line in _build.build_info["log"].splitlines():
+        if "Compiling entry function" in line:
+            entry = line
         if "registers" in line or "spill" in line:
             log("ptxas: " + line.strip())
+        if "spill" in line and "setup_fft_kernel" in entry and \
+                "0 bytes spill stores, 0 bytes spill loads" not in line:
+            raise AssertionError(f"setup_fft_kernel spills: {entry.strip()}: "
+                                 f"{line.strip()}")
     rng = np.random.default_rng(0)
     krec = phase_kernels(dev, rng)
     grec = setup_gemm_route(dev)
@@ -1310,8 +1317,7 @@ def main():
                    second_route=dict(
                        route="cuda",
                        source="pulseportraiture_tpu_torch/csrc/setup.cu",
-                       taken_when="nbin is not a power of two in 128..4096 "
-                                  "(or more than 4 seed columns)",
+                       taken_when="nbin is not a power of two in 128..4096",
                        **grec))),
         entry("phase_moments", "pulseportraiture_tpu_torch/csrc/moments.cu",
               tpu + "pallas_moments.py:323",

@@ -57,7 +57,7 @@ def _declare(lib):
     lib.pp_fused_setup.restype = i32
     lib.pp_fused_setup_fft.argtypes = [vp, i32, vp, i32, vp, vp, vp, vp, i32,
                                        vp, vp, vp, vp, vp, vp, i32, i32, i32,
-                                       i32, i32, i32, i32, vp]
+                                       i32, i32, i32, vp]
     lib.pp_fused_setup_fft.restype = i32
     lib.pp_scat_moments.argtypes = [vp, vp, vp, vp, vp, vp, i64, i64, i32,
                                     vp]

@@ -40,11 +40,12 @@
 //     block; the radix-16 and radix-8 butterflies' inner twiddles are
 //     constants.
 //   * A block takes a tile of consecutive channels of one item, group after
-//     group, and every worker keeps a ring of raw rows in shared memory:
-//     its first thread starts cp.async.bulk (the 1-D TMA bulk copy) for the
-//     rows ahead, completion on an mbarrier per ring slot, while the worker
-//     transforms the current row.  A slot is free again once the first pass
-//     has read it.
+//     group, and every worker keeps a ring of two raw rows in shared
+//     memory: its first thread starts cp.async.bulk (the 1-D TMA bulk copy)
+//     for the rows ahead, completion on an mbarrier per ring slot, while
+//     the worker transforms the current row.  A slot is free again once the
+//     first pass has read it.  (A third slot costs a resident block per SM
+//     and was slower on the H100.)
 //   * sd is the sum of |Z_k|^2 of the packed spectrum, taken by the worker
 //     from its registers after the last pass (the pair X_k, X_{N/2-k}
 //     carries the power of Z_k, Z_{N/2-k}; Z_0 holds X_0 and the Nyquist
@@ -57,9 +58,10 @@
 //     (k or N/2 - k below nh).  Thread t owns the pairs k = t, t + 256, ...,
 //     so model reads and Gr/Gi writes are coalesced, and keeps their seed
 //     partial sums in registers across the rows of the tile; they are
-//     written once per tile and a second kernel adds the tiles in a fixed
-//     order.  No float atomics: the same bits on every run (the seed is an
-//     argmax on a 512-point grid).
+//     written once per tile, harmonic-contiguous, and a second kernel adds
+//     the tiles in a fixed order (16 threads a harmonic: a tile here is 8 to
+//     64 channels, so there are up to 512 of them).  No float atomics: the
+//     same bits on every run (the seed is an argmax on a 512-point grid).
 //   * int16 data are dequantized after the transform (X * scale), the order
 //     the plain twin uses.
 
@@ -71,10 +73,10 @@
 namespace {
 
 constexpr int NT = 256;        // threads per block
-constexpr int MAX_SLOTS = 3;   // ring slots
+constexpr int NSLOT = 2;       // ring slots: raw rows per worker
 constexpr int MIN_NBIN = 128;
 constexpr int MAX_NBIN = 4096;
-constexpr int MAX_SEEDS = 4;
+constexpr int MAX_SEEDS = 2;   // seed columns whose sums a thread keeps
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -137,7 +139,7 @@ struct Args {
   float* gi;
   float* sd;
   float* part;
-  int x_is_i16, kseed, nchan, nh, f0_fact, rows_per_tile, nslot;
+  int x_is_i16, kseed, nchan, nh, f0_fact, rows_per_tile;
 };
 
 // One harmonic h of a row against its model value m: the cross-spectrum,
@@ -175,6 +177,43 @@ __device__ __forceinline__ void flush(const Args& a, float* base, int h,
     }
 }
 
+// What the epilogue needs of the rows q0 .. q0 + QC - 1 of a group (nrow
+// rows, the first at channel c of item b): scale, seed weights, and the
+// model values of thread tid's harmonic pairs (k, NZ - k), k = tid + NT j.
+template <int NZ, int PP, int QC, int KSA>
+__device__ __forceinline__ void fetch_rows(const Args& a, int b, int c,
+                                           int q0, int nrow, int tid,
+                                           float (&sc)[QC],
+                                           float (&wv)[QC][KSA],
+                                           float2 (&mv)[QC][2 * PP + 1]) {
+#pragma unroll
+  for (int q = 0; q < QC; ++q) {
+    if (q0 + q < nrow) {
+      const int cq = c + q0 + q;
+      const size_t ic = static_cast<size_t>(b) * a.nchan + cq;
+      sc[q] = a.scale ? a.scale[ic] : 1.0f;
+#pragma unroll
+      for (int kk = 0; kk < KSA; ++kk)
+        wv[q][kk] = (kk < a.kseed) ? a.w[ic * a.kseed + kk] : 0.0f;
+      const float* mrow = a.mr + static_cast<size_t>(cq) * a.nh;
+      const float* irow = a.mi + static_cast<size_t>(cq) * a.nh;
+#pragma unroll
+      for (int j = 0; j < PP; ++j) {
+        const int k = tid + NT * j, kq = NZ - k;
+        const bool on = k < NZ / 2;
+        mv[q][2 * j] = (on && k < a.nh) ? make_float2(mrow[k], irow[k])
+                                        : make_float2(0.0f, 0.0f);
+        mv[q][2 * j + 1] = (on && kq < a.nh)
+                               ? make_float2(mrow[kq], irow[kq])
+                               : make_float2(0.0f, 0.0f);
+      }
+      mv[q][2 * PP] = (tid == 0 && NZ / 2 < a.nh)
+                          ? make_float2(mrow[NZ / 2], irow[NZ / 2])
+                          : make_float2(0.0f, 0.0f);
+    }
+  }
+}
+
 // LG: log2(nbin/2); KS: seed accumulators per harmonic (kseed <= KS).
 // Two blocks share an SM (shared memory allows no more; at nbin = 4096 one),
 // so a thread may use 128 registers.
@@ -187,9 +226,10 @@ setup_fft_kernel(const Args a) {
   constexpr int WPB = NT / WT;                   // workers = rows per group
   constexpr int PP = NZ / 2 <= NT ? 1 : NZ / 2 / NT;   // pairs per thread
   constexpr int KSA = KS > 0 ? KS : 1;
+  constexpr int QC = WPB < 4 ? WPB : 4;          // rows fetched at a time
 
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) uint64_t bars[WPB * MAX_SLOTS];
+  __shared__ __align__(8) uint64_t bars[WPB * NSLOT];
   __shared__ float wred[WPB][WT / 32];
 
   const int tid = threadIdx.x;
@@ -198,12 +238,12 @@ setup_fft_kernel(const Args a) {
 
   // ring[w][slot]: raw rows; bufs[w]: worker w's padded work buffer; tw
   unsigned char* ring = smem;
-  float2* bufs = reinterpret_cast<float2*>(smem + WPB * a.nslot * rowbytes);
+  float2* bufs = reinterpret_cast<float2*>(smem + WPB * NSLOT * rowbytes);
   float2* tw = bufs + WPB * P::WSZ;
   const float2* untw = tw + P::NTW;              // W^k, k = 0 .. NZ/2
-  unsigned char* myring = ring + w * a.nslot * rowbytes;
+  unsigned char* myring = ring + w * NSLOT * rowbytes;
   float2* mybuf = bufs + w * P::WSZ;
-  uint64_t* mybars = bars + w * MAX_SLOTS;
+  uint64_t* mybars = bars + w * NSLOT;
 
   // worker w transforms the rows w, w + WPB, ... of the block's tile
   const int b = blockIdx.y;
@@ -215,13 +255,13 @@ setup_fft_kernel(const Args a) {
       (static_cast<size_t>(b) * a.nchan + c0) * rowbytes;
 
   if (tid == 0) {
-    for (int s = 0; s < WPB * MAX_SLOTS; ++s) mbar_init(&bars[s], 1);
+    for (int s = 0; s < WPB * NSLOT; ++s) mbar_init(&bars[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   for (int i = tid; i < P::NTW + NZ / 2 + 1; i += NT) tw[i] = a.tw[i];
   __syncthreads();
   if (l == 0)
-    for (int s = 0; s < a.nslot && s * WPB + w < rows; ++s)
+    for (int s = 0; s < NSLOT && s * WPB + w < rows; ++s)
       row_load(myring + s * rowbytes,
                xrow0 + static_cast<size_t>(s * WPB + w) * rowbytes, rowbytes,
                &mybars[s]);
@@ -235,8 +275,8 @@ setup_fft_kernel(const Args a) {
   for (int g = 0; g < ngroups; ++g) {
     const int r = g * WPB + w;                   // this worker's row
     if (r < rows) {
-      const int slot = g % a.nslot;
-      mbar_wait(&mybars[slot], (g / a.nslot) & 1);
+      const int slot = g % NSLOT;
+      mbar_wait(&mybars[slot], (g / NSLOT) & 1);
       const unsigned char* raw = myring + slot * rowbytes;
       float2 v[16];
       if (l < P::NA) {
@@ -250,9 +290,9 @@ setup_fft_kernel(const Args a) {
               l);
       }
       worker_sync(w, WT);                        // the slot is read
-      if (l == 0 && r + a.nslot * WPB < rows)
+      if (l == 0 && r + NSLOT * WPB < rows)
         row_load(myring + slot * rowbytes,
-                 xrow0 + static_cast<size_t>(r + a.nslot * WPB) * rowbytes,
+                 xrow0 + static_cast<size_t>(r + NSLOT * WPB) * rowbytes,
                  rowbytes, &mybars[slot]);
       if (l < P::NA) ppfft::fft_phase1<LG>(v, mybuf, l);
       worker_sync(w, WT);
@@ -284,37 +324,13 @@ setup_fft_kernel(const Args a) {
     }
 
     // The group's rows, all threads: thread t owns the harmonic pairs (k,
-    // NZ - k), k = t + NT j.  Scales, seed weights and model values are
-    // asked for before the barrier, so their latency hides behind it.
+    // NZ - k), k = t + NT j.  Scales, seed weights and model values of the
+    // first QC rows are asked for before the barrier, so their latency
+    // hides behind it (more rows ahead would not fit the registers).
     const int nrow = min(WPB, rows - g * WPB);
-    float sc[WPB], wv[WPB][KSA];
-    float2 mv[WPB][2 * PP + 1];
-#pragma unroll
-    for (int q = 0; q < WPB; ++q) {
-      if (q < nrow) {
-        const int c = c0 + g * WPB + q;
-        const size_t ic = static_cast<size_t>(b) * a.nchan + c;
-        sc[q] = a.scale ? a.scale[ic] : 1.0f;
-#pragma unroll
-        for (int kk = 0; kk < KSA; ++kk)
-          wv[q][kk] = (kk < a.kseed) ? a.w[ic * a.kseed + kk] : 0.0f;
-        const float* mrow = a.mr + static_cast<size_t>(c) * a.nh;
-        const float* irow = a.mi + static_cast<size_t>(c) * a.nh;
-#pragma unroll
-        for (int j = 0; j < PP; ++j) {
-          const int k = tid + NT * j, kq = NZ - k;
-          const bool on = k < NZ / 2;
-          mv[q][2 * j] = (on && k < a.nh) ? make_float2(mrow[k], irow[k])
-                                          : make_float2(0.0f, 0.0f);
-          mv[q][2 * j + 1] = (on && kq < a.nh)
-                                 ? make_float2(mrow[kq], irow[kq])
-                                 : make_float2(0.0f, 0.0f);
-        }
-        mv[q][2 * PP] = (tid == 0 && NZ / 2 < a.nh)
-                            ? make_float2(mrow[NZ / 2], irow[NZ / 2])
-                            : make_float2(0.0f, 0.0f);
-      }
-    }
+    float sc[QC], wv[QC][KSA];
+    float2 mv[QC][2 * PP + 1];
+    fetch_rows<NZ, PP, QC, KSA>(a, b, c0 + g * WPB, 0, nrow, tid, sc, wv, mv);
     __syncthreads();                             // every row's Z is written
     if (l == 0 && r < rows) {                    // fixed order: the same bits
       const size_t ic = static_cast<size_t>(b) * a.nchan + c0 + r;
@@ -325,35 +341,42 @@ setup_fft_kernel(const Args a) {
       a.sd[ic] = sum * s * s;
     }
 #pragma unroll
-    for (int q = 0; q < WPB; ++q) {
-      if (q < nrow) {
-        const float2* z = bufs + q * P::WSZ;
-        const size_t ic =
-            static_cast<size_t>(b) * a.nchan + c0 + g * WPB + q;
-        const float s = sc[q];
+    for (int q0 = 0; q0 < WPB; q0 += QC) {
+      if (q0 > 0)
+        fetch_rows<NZ, PP, QC, KSA>(a, b, c0 + g * WPB, q0, nrow, tid, sc, wv,
+                                    mv);
 #pragma unroll
-        for (int j = 0; j < PP; ++j) {
-          const int k = tid + NT * j;
-          // only the harmonics the model has (k or NZ - k below nh)
-          if (k < NZ / 2 && (k < a.nh || NZ - k < a.nh)) {
-            const float2 zk = z[k];
-            const float2 zq = z[(NZ - k) & (NZ - 1)];
-            const float er = 0.5f * (zk.x + zq.x), ei = 0.5f * (zk.y - zq.y);
-            const float o_r = 0.5f * (zk.x - zq.x);
-            const float o_i = 0.5f * (zk.y + zq.y);
-            const float2 wk = untw[k];
-            const float tr = wk.x * o_r - wk.y * o_i;
-            const float ti = wk.x * o_i + wk.y * o_r;
-            emit<KS>(a, ic, k, (er + ti) * s, (ei - tr) * s, mv[q][2 * j],
-                     wv[q], acc[2 * j]);                          // X_k
-            emit<KS>(a, ic, NZ - k, (er - ti) * s, (-ei - tr) * s,
-                     mv[q][2 * j + 1], wv[q], acc[2 * j + 1]);    // X_{NZ-k}
+      for (int q = 0; q < QC; ++q) {
+        if (q0 + q < nrow) {
+          const float2* z = bufs + (q0 + q) * P::WSZ;
+          const size_t ic =
+              static_cast<size_t>(b) * a.nchan + c0 + g * WPB + q0 + q;
+          const float s = sc[q];
+#pragma unroll
+          for (int j = 0; j < PP; ++j) {
+            const int k = tid + NT * j;
+            // only the harmonics the model has (k or NZ - k below nh)
+            if (k < NZ / 2 && (k < a.nh || NZ - k < a.nh)) {
+              const float2 zk = z[k];
+              const float2 zq = z[(NZ - k) & (NZ - 1)];
+              const float er = 0.5f * (zk.x + zq.x);
+              const float ei = 0.5f * (zk.y - zq.y);
+              const float o_r = 0.5f * (zk.x - zq.x);
+              const float o_i = 0.5f * (zk.y + zq.y);
+              const float2 wk = untw[k];
+              const float tr = wk.x * o_r - wk.y * o_i;
+              const float ti = wk.x * o_i + wk.y * o_r;
+              emit<KS>(a, ic, k, (er + ti) * s, (ei - tr) * s, mv[q][2 * j],
+                       wv[q], acc[2 * j]);                        // X_k
+              emit<KS>(a, ic, NZ - k, (er - ti) * s, (-ei - tr) * s,
+                       mv[q][2 * j + 1], wv[q], acc[2 * j + 1]);  // X_{NZ-k}
+            }
           }
-        }
-        if (tid == 0 && NZ / 2 < a.nh) {  // k = NZ/2 pairs with itself
-          const float2 zh = z[NZ / 2];
-          emit<KS>(a, ic, NZ / 2, zh.x * s, -zh.y * s, mv[q][2 * PP], wv[q],
-                   acc[2 * PP]);
+          if (tid == 0 && NZ / 2 < a.nh) {  // k = NZ/2 pairs with itself
+            const float2 zh = z[NZ / 2];
+            emit<KS>(a, ic, NZ / 2, zh.x * s, -zh.y * s, mv[q][2 * PP],
+                     wv[q], acc[2 * PP]);
+          }
         }
       }
     }
@@ -414,17 +437,17 @@ seed_reduce_fft_kernel(const float* __restrict__ part,
 
 // dynamic shared memory of one block: the ring, the work buffers, the table
 template <int LG>
-size_t smem_bytes(size_t rowbytes, int nslot) {
+size_t smem_bytes(size_t rowbytes) {
   using P = ppfft::Plan<LG>;
   constexpr int WPB = NT / (P::NA < 32 ? 32 : P::NA);
-  return WPB * nslot * rowbytes +
+  return WPB * NSLOT * rowbytes +
          (static_cast<size_t>(WPB) * P::WSZ + P::NTW + P::NZ / 2 + 1) * 8;
 }
 
 template <int LG, int KS>
 cudaError_t launch(const Args& a, dim3 grid, size_t rowbytes,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes<LG>(rowbytes, a.nslot);
+  const size_t smem = smem_bytes<LG>(rowbytes);
   const cudaError_t e = cudaFuncSetAttribute(
       setup_fft_kernel<LG, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -437,8 +460,7 @@ template <int LG>
 cudaError_t launch_seeds(const Args& a, dim3 grid, size_t rowbytes,
                          cudaStream_t stream) {
   if (a.kseed == 0) return launch<LG, 0>(a, grid, rowbytes, stream);
-  if (a.kseed <= 2) return launch<LG, 2>(a, grid, rowbytes, stream);
-  return launch<LG, 4>(a, grid, rowbytes, stream);
+  return launch<LG, MAX_SEEDS>(a, grid, rowbytes, stream);
 }
 
 }  // namespace
@@ -447,10 +469,9 @@ cudaError_t launch_seeds(const Args& a, dim3 grid, size_t rowbytes,
 // power of two in 128..4096; tw (ntw, 2) f32: the twiddled passes' tables
 // then W^k for k <= nbin/4 (ops/setup_dft._fft_tables_np); mr/mi (nchan,
 // nh); scale (B, nchan) or null; w (B, nchan, kseed) or null (kseed = 0;
-// at most 4); outputs gr/gi (B, nchan, nh), sd (B, nchan); with kseed > 0:
+// at most 2); outputs gr/gi (B, nchan, nh), sd (B, nchan); with kseed > 0:
 // scratch part (B, ceil(nchan/rows_per_tile), kseed, 2, nh) and gsr/gsi (B,
-// kseed, nh).  nslot: ring slots per row in flight, 2 or 3.  All
-// contiguous.  Returns cudaGetLastError() after the launches.
+// kseed, nh).  All contiguous.  Returns cudaGetLastError() after the launches.
 extern "C" int pp_fused_setup_fft(const void* x, int x_is_i16,
                                   const float* tw, int ntw, const float* mr,
                                   const float* mi, const float* scale,
@@ -458,11 +479,11 @@ extern "C" int pp_fused_setup_fft(const void* x, int x_is_i16,
                                   float* gi, float* sd, float* part,
                                   float* gsr, float* gsi, int B, int nchan,
                                   int nbin, int nh, int f0_fact,
-                                  int rows_per_tile, int nslot,
+                                  int rows_per_tile,
                                   cudaStream_t stream) {
   const int nz = nbin / 2;
   if (nbin < MIN_NBIN || nbin > MAX_NBIN || (nbin & (nbin - 1)) ||
-      kseed < 0 || kseed > MAX_SEEDS || nslot < 2 || nslot > MAX_SLOTS ||
+      kseed < 0 || kseed > MAX_SEEDS ||
       rows_per_tile < 1 || nh < 1 || nh > nz + 1 || B < 1 || B > 65535 ||
       nchan < 1 || (reinterpret_cast<uintptr_t>(x) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -494,7 +515,6 @@ extern "C" int pp_fused_setup_fft(const void* x, int x_is_i16,
   a.nh = nh;
   a.f0_fact = f0_fact;
   a.rows_per_tile = rows_per_tile;
-  a.nslot = nslot;
   const int ntile = (nchan + rows_per_tile - 1) / rows_per_tile;
   const dim3 grid(ntile, B);
   const size_t rowbytes = static_cast<size_t>(nbin) * (x_is_i16 ? 2 : 4);

@@ -17,14 +17,14 @@ harmonics the capped set is a prefix, so one kernel serves both with
 nh = NQ*M' or nbin/2 + 1.
 
 Kernel note (csrc/setup_fft.cu, `pp_fused_setup_fft`; nbin a power of two
-in 128..4096, at most 4 seed columns):
+in 128..4096, at most 2 seed columns):
   * Bound on the H100: bytes.  An FFT needs 2.5 nbin log2(nbin) flops
     per row against nbin * itemsize bytes read, so the data read (once)
     and Gr/Gi written set the least time; tensor cores are not used.
   * Design: a block takes a tile of consecutive channels of one item.
-    Each row arrives in a shared-memory ring by cp.async.bulk (completion
-    on an mbarrier) and is transformed there as an nbin/2-point complex
-    Stockham FFT of the packed row z_j = x_2j + i x_2j+1 by a worker of
+    Each row arrives in a two-slot shared-memory ring by cp.async.bulk
+    (completion on an mbarrier) and is transformed there as an nbin/2-point
+    complex Stockham FFT of the packed row z_j = x_2j + i x_2j+1 by a worker of
     nbin/32 threads, 16 points each in registers, in passes of radix 16,
     16 and 2, 4 or 8 (csrc/fft_passes.cuh).  sd is the power of the
     packed spectrum (which is sum |X_k|^2), summed from those registers
@@ -153,9 +153,9 @@ def fused_setup_reference(x, mr, mi, f0_fact=False, w=None, scale=None):
 
 # what csrc/setup_fft.cu takes: one block holds a row of nbin samples, its
 # two nbin/2-point work buffers and the twiddle tables in shared memory,
-# and keeps the seed sums of at most 4 weight columns in registers
-FFT_MIN_NBIN, FFT_MAX_NBIN, FFT_MAX_SEEDS = 128, 4096, 4
-_FFT_SLOTS = 2        # ring slots per row in flight (3 costs a block per SM)
+# and keeps the seed sums of at most 2 weight columns (the fit's seed
+# stacks two) in registers
+FFT_MIN_NBIN, FFT_MAX_NBIN, FFT_MAX_SEEDS = 128, 4096, 2
 
 
 def _fft_rows(B: int, nchan: int, nsm: int) -> int:
@@ -170,14 +170,13 @@ def _fft_rows(B: int, nchan: int, nsm: int) -> int:
     return rows
 
 
-def setup_route(nbin: int, kseed: int = 0) -> str:
+def setup_route(nbin: int) -> str:
     """Which hand-written kernel fused_setup launches on a CUDA tensor:
     "fft" (csrc/setup_fft.cu) when nbin is a power of two in
-    FFT_MIN_NBIN..FFT_MAX_NBIN and there are at most FFT_MAX_SEEDS seed
-    columns, else "gemm" (csrc/setup.cu: odd nbin, 768, 1280, ...)."""
+    FFT_MIN_NBIN..FFT_MAX_NBIN, else "gemm" (csrc/setup.cu: odd nbin, 768,
+    1280, ...)."""
     pow2 = nbin > 0 and nbin & (nbin - 1) == 0
-    if pow2 and FFT_MIN_NBIN <= nbin <= FFT_MAX_NBIN and \
-            kseed <= FFT_MAX_SEEDS:
+    if pow2 and FFT_MIN_NBIN <= nbin <= FFT_MAX_NBIN:
         return "fft"
     return "gemm"
 
@@ -308,7 +307,8 @@ def fused_setup(x, mr, mi, f0_fact=False, w=None, scale=None):
 
     scale: (B, nchan) dequantization for int16 x (requires f0_fact
     falsy: per-channel offsets only feed the dropped DC harmonic).
-    w: stacked seed weights (B, nchan, K); gsr/gsi are (B, K, nh).
+    w: stacked seed weights (B, nchan, K); gsr/gsi are (B, K, nh).  The
+    FFT kernel takes K <= FFT_MAX_SEEDS and raises above.
     CPU tensors take the plain twin; CUDA tensors launch the kernel that
     setup_route names for their shape (or raise).  fused_setup.launches
     counts the launches, fused_setup.routes each route's.
@@ -320,8 +320,8 @@ def fused_setup(x, mr, mi, f0_fact=False, w=None, scale=None):
         return fused_setup_reference(x, mr, mi, f0_fact, w, scale)
     if x.device.type != "cuda":
         raise ValueError(f"fused_setup: unsupported device {x.device}")
-    kseed = _check(x, mr, mi, w, scale)
-    if setup_route(x.shape[-1], kseed) == "fft":
+    _check(x, mr, mi, w, scale)
+    if setup_route(x.shape[-1]) == "fft":
         return _launch_fft(x, mr, mi, bool(f0_fact), w, scale)
     return _launch_gemm(x, mr, mi, bool(f0_fact), w, scale)
 
@@ -444,9 +444,9 @@ def _launch_gemm(x, mr, mi, f0_fact, w, scale):
     return tuple(out)
 
 
-def _launch_fft(x, mr, mi, f0_fact, w, scale, rows=None, slots=_FFT_SLOTS):
+def _launch_fft(x, mr, mi, f0_fact, w, scale, rows=None):
     """csrc/setup_fft.cu on checked arguments (_check): rows channels per
-    block (default: _fft_rows), slots ring slots per row in flight.  The
+    block (default: _fft_rows; scripts/torch_setup_tune.py sweeps it).  The
     bulk copies need a 16-byte aligned x (a row of nbin >= 128 samples is
     a multiple of 16 bytes)."""
     from pulseportraiture_tpu_torch._build import load_kernels
@@ -457,9 +457,11 @@ def _launch_fft(x, mr, mi, f0_fact, w, scale, rows=None, slots=_FFT_SLOTS):
             x.device).multi_processor_count)
     nh = mr.shape[-1]
     kseed = 0 if w is None else w.shape[-1]
-    if setup_route(nbin, kseed) != "fft":
-        raise ValueError(f"the FFT setup kernel does not take nbin={nbin} "
-                         f"with {kseed} seed columns")
+    if setup_route(nbin) != "fft":
+        raise ValueError(f"the FFT setup kernel does not take nbin={nbin}")
+    if kseed > FFT_MAX_SEEDS:
+        raise ValueError(f"the FFT setup kernel takes at most "
+                         f"{FFT_MAX_SEEDS} seed columns, got {kseed}")
     if x.data_ptr() % 16:
         raise ValueError("fused_setup kernel: x must start on a 16-byte "
                          "boundary (an offset view does not)")
@@ -480,7 +482,6 @@ def _launch_fft(x, mr, mi, f0_fact, w, scale, rows=None, slots=_FFT_SLOTS):
             *map(_ptr, out[3:] or (None, None)), ctypes.c_int(B),
             ctypes.c_int(nchan), ctypes.c_int(nbin), ctypes.c_int(nh),
             ctypes.c_int(int(f0_fact)), ctypes.c_int(rows),
-            ctypes.c_int(slots),
             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
         _launched(err, lib, "pp_fused_setup_fft", "fft")
     return tuple(out)

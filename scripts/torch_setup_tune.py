@@ -1,24 +1,20 @@
 #!/usr/bin/env python3
-"""The FFT setup kernel (csrc/setup_fft.cu) on one NVIDIA card: a check
-against the float64 twin, then its time over the tile size and the ring
-depth.
+"""The FFT setup kernel (csrc/setup_fft.cu) on one NVIDIA card: its time
+over the tile size (channels per block), beside the other routes.
 
-    python3 scripts/torch_setup_tune.py [--check-only] [--out tune.json]
+    python3 scripts/torch_setup_tune.py [--out tune.json]
 
 1. Builds the kernels and prints what ptxas says of setup_fft.cu
    (registers, spills, shared memory).
-2. Check: `_launch_fft` against `fused_setup_reference` in float64 at
-   small and ragged shapes (nbin 128..4096, nchan 5..130, capped and full
-   band, float32 and int16, with and without seed weights, 2 and 3 ring
-   slots, 1..32 rows per block): every output within 2e-5 of its largest
-   magnitude, and bitwise equal on a second run.
-3. Sweep, at 4096 channels x 2048 bins (chip_smoke.py's data): B=4 with
+2. Sweep, at 4096 channels x 2048 bins (chip_smoke.py's data): B=4 with
    two seed columns, capped (nh=128), full band (nh=1025) and int16
    capped; one item without seed weights, capped and full band; rows per
-   block in {4, 8, 16, 32, 64} x ring slots in {2, 3}; CUDA events, mean
-   of 20 launches after 3 warm-ups.  Beside them, in the same call: the
-   SGEMM route (csrc/setup.cu), the rfft twin and the byte bound.
-Needs a card.
+   block in {4, 8, 16, 32, 64} and the wrapper's own choice (_fft_rows);
+   CUDA events, mean of 20 launches after 3 warm-ups.  Beside them, in
+   the same call: the SGEMM route (csrc/setup.cu), the rfft twin and the
+   byte bound.
+Needs a card.  (tests/test_torch_kernels.py holds the kernel against its
+float64 twin at small and ragged shapes.)
 """
 
 import argparse
@@ -27,68 +23,6 @@ import os
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def check(dev):
-    import numpy as np
-    import torch
-
-    from pulseportraiture_tpu_torch.io.native import quantize_i2
-    from pulseportraiture_tpu_torch.ops import setup_dft as sdft
-
-    rng = np.random.default_rng(5)
-    worst = 0.0
-    cases = [(128, 5, 65, False, 2, 1, 2), (128, 33, 16, True, 0, 4, 3),
-             (256, 70, 129, False, 1, 16, 2), (512, 70, 64, True, 2, 16, 3),
-             (1024, 33, 513, False, 4, 8, 2), (2048, 130, 1025, True, 2, 16, 2),
-             (2048, 130, 128, False, 2, 32, 3), (2048, 5, 1025, False, 0, 16, 2),
-             (4096, 33, 2049, False, 2, 16, 2), (4096, 70, 256, True, 3, 5, 3)]
-    for nbin, nchan, nh, i16, K, rows, slots in cases:
-        B = 3
-        x = rng.normal(size=(B, nchan, nbin)).astype(np.float32)
-        x[..., nbin // 3] += 20.0
-        sc = None
-        if i16:
-            x, scl, _ = quantize_i2(x)
-            sc = torch.from_numpy(scl.astype(np.float32)).to(dev)
-        xt = torch.from_numpy(x).to(dev)
-        mr = torch.from_numpy(rng.normal(size=(nchan, nh)).astype(
-            np.float32)).to(dev)
-        mi = torch.from_numpy(rng.normal(size=(nchan, nh)).astype(
-            np.float32)).to(dev)
-        w = None
-        if K:
-            w = torch.from_numpy(rng.uniform(0.5, 2.0, (B, nchan, K)).astype(
-                np.float32)).to(dev)
-        for f0 in (False,) if i16 else (False, True):
-            sdft._check(xt, mr, mi, w, sc)
-            got = sdft._launch_fft(xt, mr, mi, f0, w, sc, rows=rows,
-                                   slots=slots)
-            torch.cuda.synchronize()
-            again = sdft._launch_fft(xt, mr, mi, f0, w, sc, rows=rows,
-                                     slots=slots)
-            torch.cuda.synchronize()
-            ref = sdft.fused_setup_reference(
-                xt, mr.double(), mi.double(), f0,
-                None if w is None else w.double(),
-                None if sc is None else sc.double())
-            gmax = max(float(ref[0].abs().max()), float(ref[1].abs().max()))
-            scales = [gmax, gmax, float(ref[2].abs().max())]
-            if K:
-                smax = max(float(ref[3].abs().max()),
-                           float(ref[4].abs().max()))
-                scales += [smax, smax]
-            rel = [float((g.double() - r).abs().max()) / s
-                   for g, r, s in zip(got, ref, scales)]
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
-            print(f"check nbin={nbin} nchan={nchan} nh={nh} i16={i16} K={K} "
-                  f"f0={f0} rows={rows} slots={slots}: rel err {rel}, "
-                  f"bitwise repeat {same}", flush=True)
-            worst = max(worst, max(rel))
-            if max(rel) > 2e-5 or not same:
-                raise AssertionError("the FFT setup kernel disagrees with "
-                                     "its twin or with itself")
-    return worst
 
 
 def sweep(dev):
@@ -122,11 +56,9 @@ def sweep(dev):
         nh = mr.shape[-1]
         rec = {"nh": nh}
         for rows in (4, 8, 16, 32, 64):
-            for slots in (2, 3):
-                rec[f"fft_rows{rows}_slots{slots}_ms"] = cs.cuda_ms(
-                    lambda: sdft._launch_fft(x, mr, mi, False, ww, sc,
-                                             rows=rows, slots=slots),
-                    reps=20, warm=3)
+            rec[f"fft_rows{rows}_ms"] = cs.cuda_ms(
+                lambda: sdft._launch_fft(x, mr, mi, False, ww, sc,
+                                         rows=rows), reps=20, warm=3)
         rec["default_rows"] = sdft._fft_rows(
             x.shape[0], x.shape[1], torch.cuda.get_device_properties(
                 dev).multi_processor_count)
@@ -148,7 +80,6 @@ def sweep(dev):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--check-only", action="store_true")
     ap.add_argument("--out", default=None, help="also write JSON here")
     args = ap.parse_args()
     import torch
@@ -167,9 +98,7 @@ def main():
     for line in _build.build_info["log"].splitlines():
         if "setup_fft" in line or "registers" in line or "spill" in line:
             print("ptxas: " + line.strip(), flush=True)
-    res = {"card": cs.card_line(), "check_worst_rel_err": check(dev)}
-    if not args.check_only:
-        res["sweep"] = sweep(dev)
+    res = {"card": cs.card_line(), "sweep": sweep(dev)}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

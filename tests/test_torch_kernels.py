@@ -111,6 +111,10 @@ def test_scattering_moments_kernel_matches_twin(cuda, nh, shared_m2):
     (4096, True, True, False, 70, False, "fft"),
     (128, False, False, True, 33, True, "fft"),
     (2048, True, True, False, 130, True, "fft"),   # ragged last tile, int16
+    (1024, False, False, False, 33, True, "fft"),  # passes 16, 16, 2
+    (2048, False, False, False, 5, False, "fft"),  # less than one tile
+    (4096, True, True, False, 70, True, "fft"),
+    (128, False, True, False, 33, False, "fft"),
 ])
 def test_fused_setup_kernel_matches_twin(cuda, nbin, capped, i16, f0_fact,
                                          nchan, seeds, route):
@@ -136,7 +140,7 @@ def test_fused_setup_kernel_matches_twin(cuda, nbin, capped, i16, f0_fact,
            for a in (x, mr, mi, w)]
     sc = None if scale is None else torch.from_numpy(scale).to(cuda)
     wt = dev[3] if seeds else None
-    assert sdft.setup_route(nbin, 2 if seeds else 0) == route
+    assert sdft.setup_route(nbin) == route
     n0, r0 = sdft.fused_setup.launches, dict(sdft.fused_setup.routes)
     got = sdft.fused_setup(dev[0], dev[1], dev[2], f0_fact=f0_fact, w=wt,
                            scale=sc)
@@ -202,6 +206,11 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
     n0 = sdft.fused_setup.launches
     with pytest.raises(ValueError, match="16-byte"):
         sdft.fused_setup(off, m, m)
+    assert sdft.fused_setup.launches == n0
+    # the FFT route keeps two seed columns' sums in registers, no more
+    x = torch.zeros((1, 4, 256), device=cuda)
+    with pytest.raises(ValueError, match="seed columns"):
+        sdft.fused_setup(x, m, m, w=torch.ones((1, 4, 3), device=cuda))
     assert sdft.fused_setup.launches == n0
     with pytest.raises(TypeError):
         mom.phase_moments(torch.zeros((1, 4), dtype=torch.float64,

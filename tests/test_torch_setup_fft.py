@@ -189,13 +189,13 @@ def test_twiddle_table(nbin):
     assert tb[-1] == -1.0j                          # W^(nbin/4), exact
 
 
-@pytest.mark.parametrize("nbin,kseed,want", [
-    (128, 0, "fft"), (256, 2, "fft"), (1024, 1, "fft"), (2048, 2, "fft"),
-    (4096, 4, "fft"), (64, 0, "gemm"), (8192, 0, "gemm"), (255, 0, "gemm"),
-    (768, 2, "gemm"), (1280, 2, "gemm"), (2048, 5, "gemm"), (0, 0, "gemm"),
+@pytest.mark.parametrize("nbin,want", [
+    (128, "fft"), (256, "fft"), (512, "fft"), (1024, "fft"), (2048, "fft"),
+    (4096, "fft"), (64, "gemm"), (8192, "gemm"), (255, "gemm"),
+    (768, "gemm"), (1280, "gemm"), (0, "gemm"),
 ])
-def test_setup_route(nbin, kseed, want):
-    assert sdft.setup_route(nbin, kseed) == want
+def test_setup_route(nbin, want):
+    assert sdft.setup_route(nbin) == want
 
 
 @pytest.mark.parametrize("B,nchan,want", [
