@@ -21,7 +21,8 @@ parallel), then:
   3. the scattering-moments kernel against its float64 twin at B=32,
      nh=128 and 1025, phases in [-3, 3] turns, taus around
      8e-3 (nu/1500)^-4 rot over two decades: each of the 9 sums within
-     2e-6 of sum_k |summand_k|; kernel and plain float32 times; the same
+     2e-6 of sum_k |summand_k|, a second call bitwise equal; the geometry
+     scat_geometry chose; kernel and plain float32 times; the same
      for 4096 items of one channel, each with an M2 row of its own (what
      the per-channel scattering fit gives the kernel);
   4. runs the batched (phi, DM) fit at 4096 x 2048, B=64, capped and full
@@ -64,7 +65,9 @@ parallel), then:
      every error finite and positive above S/N 8;
  12. the (phi, DM) pipeline once more with a two-component .gmodel
      template written here: injected dDM within 3 sigma.
-Launch counts are reset before each pipeline run (the main paths) and
+ptxas's registers and spills are printed for every kernel; a spill in the
+setup FFT or the scattering kernel fails the run.  Launch counts are
+reset before each pipeline run (the main paths) and
 read after it; every kernel of that path must have launched there, and
 every setup launch of a path (all run at 2048 bins) must have taken the
 FFT route.  The
@@ -88,10 +91,13 @@ NCHAN, NBIN, P, NOISE = 4096, 2048, 0.003, 0.1
 # one H100 SXM (NVIDIA data sheet, at a 700 W limit): HBM bytes/s and
 # float32 operations/s outside the tensor cores
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
-# float32 operations per harmonic in csrc/moments.cu and
-# csrc/scat_moments.cu (adds and multiplies; sincosf, rintf and the
-# division counted as one each, so the bound stays a lower bound)
-PHASE_OPS, SCAT_OPS = 19, 85
+# float32 operations per harmonic: csrc/moments.cu (adds and multiplies;
+# sincosf and rintf counted as one each, so the bound stays a lower bound)
+# and csrc/scat_moments.cu's closed forms (the phasor's complex multiply
+# 6, G P, z and w 6 each, Re v 3, c, 1 + c^2 and its reciprocal 4, bi 1,
+# k and k^2 2, the nine accumulations and their products 22; an FMA
+# counts 2, the reciprocal 1)
+PHASE_OPS, SCAT_OPS = 19, 56
 TAU0, ALPHA0 = 8e-3, -4.0     # [rot] at 1500 MHz (scripts/tpu_scaling.py)
 
 
@@ -517,10 +523,48 @@ def phase_kernels(dev, rng):
     return rec
 
 
+# the scattering kernel's shapes: (B, nchan) items against one shared M2
+# (the wideband fit), then what the narrowband fit_scat path gives it: 4096
+# items of one channel, each with an M2 row of its own
+SCAT_SHAPES = (("capped", (32, NCHAN), 128, False),
+               ("full_band", (32, NCHAN), NBIN // 2 + 1, False),
+               ("per_item_capped", (NCHAN, 1), 128, True),
+               ("per_item_full_band", (NCHAN, 1), NBIN // 2 + 1, True))
+
+
+def scat_inputs(dev, gen, lead, nh, per_item):
+    """(phis, taus, Gr, Gi, M2) float32 on the card: Gr, Gi ~ N(0, 1),
+    M2 = |rfft(bench_template)|^2, phases in [-3, 3] turns, taus around
+    TAU0 (nu/1500)^ALPHA0 over two decades."""
+    import numpy as np
+    import torch
+    f32 = dict(dtype=torch.float32, device=dev, generator=gen)
+    freqs = torch.linspace(1100.0, 1900.0, NCHAN, device=dev)
+    mf = np.fft.rfft(bench_template(freqs.cpu().numpy()).astype(np.float64),
+                     axis=-1)
+    Gr = torch.randn(lead + (nh,), **f32)
+    Gi = torch.randn(lead + (nh,), **f32)
+    M2 = torch.as_tensor(np.abs(mf[:, :nh]) ** 2, dtype=torch.float32,
+                         device=dev)
+    nu = freqs
+    if per_item:
+        M2, nu = M2[:, None, :].contiguous(), freqs[:, None]
+    phis = 6.0 * torch.rand(lead, **f32) - 3.0
+    taus = TAU0 * (nu / 1500.0) ** ALPHA0 * 10.0 ** (
+        2.0 * torch.rand(lead, **f32) - 1.0)
+    return phis, taus, Gr, Gi, M2
+
+
+def scat_bound(phis, M2, nh):
+    """Bytes: Gr/Gi, M2, phis/taus read once, the 9 sums written."""
+    rows = phis.numel()
+    return bound_ms(rows * nh * 8 + M2.numel() * 4 + rows * 8 + 9 * rows * 4,
+                    rows * nh * SCAT_OPS)
+
+
 def phase_scat_kernel(dev):
     """The scattering-moments kernel against its float64 twin on the
-    card at B=32, 4096 channels, nh=128 (capped) and 1025 (full band)."""
-    import numpy as np
+    card at SCAT_SHAPES."""
     import torch
 
     from pulseportraiture_tpu_torch.fitters.stats import SCAT_NAMES
@@ -528,31 +572,17 @@ def phase_scat_kernel(dev):
 
     Bm = 32
     gen = torch.Generator(device=dev).manual_seed(2)
-    f32 = dict(dtype=torch.float32, device=dev, generator=gen)
-    freqs = torch.linspace(1100.0, 1900.0, NCHAN, device=dev)
-    mf = np.fft.rfft(bench_template(freqs.cpu().numpy()).astype(np.float64),
-                     axis=-1)
     rec = {}
-    # (B, nchan) items against one shared M2 (the wideband fit), then what
-    # the narrowband fit_scat path gives the kernel: 4096 items of one
-    # channel, each with an M2 row of its own
-    for name, lead, nh, per_item in (
-            ("capped", (Bm, NCHAN), 128, False),
-            ("full_band", (Bm, NCHAN), NBIN // 2 + 1, False),
-            ("per_item_capped", (NCHAN, 1), 128, True),
-            ("per_item_full_band", (NCHAN, 1), NBIN // 2 + 1, True)):
-        Gr = torch.randn(lead + (nh,), **f32)
-        Gi = torch.randn(lead + (nh,), **f32)
-        M2 = torch.as_tensor(np.abs(mf[:, :nh]) ** 2, dtype=torch.float32,
-                             device=dev)
-        nu = freqs
-        if per_item:
-            M2, nu = M2[:, None, :].contiguous(), freqs[:, None]
-        phis = 6.0 * torch.rand(lead, **f32) - 3.0
-        taus = TAU0 * (nu / 1500.0) ** ALPHA0 * 10.0 ** (
-            2.0 * torch.rand(lead, **f32) - 1.0)
+    for name, lead, nh, per_item in SCAT_SHAPES:
+        phis, taus, Gr, Gi, M2 = scat_inputs(dev, gen, lead, nh, per_item)
         got = mom.scattering_moments(phis, taus, Gr, Gi, M2)
         torch.cuda.synchronize()
+        geometry = mom.scat_launch_geometry(phis, M2)
+        again = mom.scattering_moments(phis, taus, Gr, Gi, M2)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"scattering_moments[{name}]: a second call "
+                                 "gave other bits")
         errs = [0.0] * 9
         step = lead[0] * 4 // Bm            # the float64 twin, in 8 pieces
         for i in range(0, lead[0], step):
@@ -571,16 +601,15 @@ def phase_scat_kernel(dev):
         ms = cuda_ms(lambda: mom.scattering_moments(phis, taus, Gr, Gi, M2))
         plain = cuda_ms(lambda: mom.scattering_moments_reference(
             phis, taus, Gr, Gi, M2))
-        rows = phis.numel()
-        bnd, by = bound_ms(rows * nh * 8 + M2.numel() * 4 + rows * 8 +
-                           9 * rows * 4, rows * nh * SCAT_OPS)
+        bnd, by = scat_bound(phis, M2, nh)
         log(f"scattering_moments[{name}] nh={nh} max abs err "
             f"{dict(zip(SCAT_NAMES, errs))}; kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}) (items x channels "
-            f"{lead[0]} x {lead[1]})")
+            f"{lead[0]} x {lead[1]}; lanes per row, rows per block, M2 rows "
+            f"a tile {geometry}; a second call bitwise equal)")
         rec[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain,
                          bound_ms=bnd, bound_by=by,
-                         max_abs_err_all=errs)
+                         max_abs_err_all=errs, geometry=list(geometry))
         del Gr, Gi
     return rec
 
@@ -1260,9 +1289,10 @@ def main():
             entry = line
         if "registers" in line or "spill" in line:
             log("ptxas: " + line.strip())
-        if "spill" in line and "setup_fft_kernel" in entry and \
+        if "spill" in line and ("setup_fft_kernel" in entry or
+                                "scat_moments_kernel" in entry) and \
                 "0 bytes spill stores, 0 bytes spill loads" not in line:
-            raise AssertionError(f"setup_fft_kernel spills: {entry.strip()}: "
+            raise AssertionError(f"a kernel spills: {entry.strip()}: "
                                  f"{line.strip()}")
     rng = np.random.default_rng(0)
     krec = phase_kernels(dev, rng)

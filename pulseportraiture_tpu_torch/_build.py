@@ -60,7 +60,7 @@ def _declare(lib):
                                        i32, i32, i32, vp]
     lib.pp_fused_setup_fft.restype = i32
     lib.pp_scat_moments.argtypes = [vp, vp, vp, vp, vp, vp, i64, i64, i32,
-                                    vp]
+                                    i32, i32, i64, vp]
     lib.pp_scat_moments.restype = i32
     lib.pp_error_string.argtypes = [i32]
     lib.pp_error_string.restype = ctypes.c_char_p
@@ -79,9 +79,11 @@ def load_kernels():
         h.update((csrc / name).read_bytes())
     h.update(" ".join(_FLAGS).encode())
     out = BUILD_DIR / f"libpp_kernels_{h.hexdigest()[:16]}.so"
+    log = out.with_suffix(".log")
     t0 = time.perf_counter()
     if out.exists():
         build_info["cached"] = True
+        build_info["log"] = log.read_text() if log.exists() else ""
     else:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tag = f"{os.getpid()}.tmp"
@@ -109,6 +111,7 @@ def load_kernels():
         build_info["log"] = "".join(logs)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        log.write_text(build_info["log"])
         os.replace(tmp, out)
         build_info["cached"] = False
     _lib = _declare(ctypes.CDLL(str(out)))

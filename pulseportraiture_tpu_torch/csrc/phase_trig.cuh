@@ -1,5 +1,6 @@
-// Double-single phasor e^{2 pi i phi k} in float32, shared by the moments
-// kernels (moments.cu, scat_moments.cu, moments_merged.cu).
+// Phasors e^{2 pi i phi k} in float32 for the moments kernels: the
+// double-single phase_trig (moments.cu, moments_merged.cu) and the
+// once-rounded phase_trig_rn (the factors of scat_moments.cu).
 //
 // Matches fitters/stats.py _phase_trig step for step:
 //   * built WITHOUT --use_fast_math: sincosf is the precise libdevice
@@ -38,6 +39,25 @@ __device__ __forceinline__ void phase_trig(const PhaseSplit& ph, float kf,
   const float frac = __fsub_rn(prod, rintf(prod));
   const float ang = __fmul_rn(kTwoPi, __fadd_rn(frac, __fmul_rn(ph.lo, kf)));
   sincosf(ang, s, c);
+}
+
+// phi wrapped to [-1/2, 1/2] (exact).
+__device__ __forceinline__ float phase_wrap(float phi) {
+  return __fsub_rn(phi, rintf(phi));
+}
+
+// sin/cos of 2 pi p k for a wrapped p (phase_wrap) with the angle rounded
+// once to float32: p k (24 x 14 bits) and its reduction mod 1 are exact in
+// float64, then 2 pi times it is rounded.  The factors of the scattering
+// kernel's phasor (scat_moments.cu); twin: ops/moments._phase_trig_rn.
+// phase_trig's angle carries the float32 2 pi and two more roundings, and
+// a product of three such factors strays further from e^{2 pi i phi k}
+// than the direct phasor does.
+__device__ __forceinline__ void phase_trig_rn(float p, float kf, float* s,
+                                              float* c) {
+  const double x = __dmul_rn(static_cast<double>(p), static_cast<double>(kf));
+  const double f = __dsub_rn(x, rint(x));
+  sincosf(static_cast<float>(__dmul_rn(6.283185307179586476925, f)), s, c);
 }
 
 }  // namespace pp

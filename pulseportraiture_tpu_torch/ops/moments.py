@@ -28,22 +28,29 @@ Kernel notes:
     their cross-spectrum once in that layout and launch it once per
     Newton step; with nharm a multiple of 4 each half is read by 128-bit
     loads.
-  * All three: one warp per row strides over the harmonics (coalesced reads,
-    each element of Gr/Gi read once; M2 rows come from L2 across items),
-    the double-single phasor of fitters.stats._phase_trig per element
+  * moments.cu and moments_merged.cu: one warp per row strides over the
+    harmonics (coalesced reads, each element of Gr/Gi read once), the
+    double-single phasor of fitters.stats._phase_trig per element
     (csrc/phase_trig.cuh, rounded non-contracted f32 steps, precise
-    sincosf), f32 accumulators and one warp-shuffle reduction.  The plain
-    torch forms materialize (B, nchan, nharm) temporaries; the kernels
-    none.
-  * Bound on the H100: the 8 bytes of Gr/Gi per harmonic (the scattering
-    kernel adds one IEEE division per harmonic).  The merged kernel at
-    one narrowband subint (4096 rows, 1025 harmonics: 34 MB) is
+    sincosf), f32 accumulators and one warp-shuffle reduction.
+  * scat_moments.cu: the nine sums in closed form (one reciprocal a
+    harmonic, no division), 8, 16 or 32 lanes a row by shape
+    (scat_geometry), groups of 4 harmonics read by 128-bit loads on each
+    row's aligned body, and a factored phasor F_l E_m S_j whose factors'
+    angles are rounded once (_phase_trig_rn): no sincosf in the harmonic
+    loop.  scattering_moments_factored_reference walks its steps on the
+    CPU.
+  * The plain torch forms materialize (B, nchan, nharm) temporaries; the
+    kernels none.  Bound on the H100: the 8 bytes of Gr/Gi per harmonic
+    (M2 rows come from L2 across items).  The merged kernel at one
+    narrowband subint (4096 rows, 1025 harmonics: 34 MB) is
     launch-latency sized.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -55,6 +62,14 @@ MAX_NHARM = 4097
 # Rg, S2)
 _SCAT_FACTORS = (1.0, 1.0, -TWO_PI, 1.0, 1.0, -TWO_PI * TWO_PI, -TWO_PI,
                  1.0, 1.0)
+# csrc/scat_moments.cu: harmonics a lane reads at once (float4), lanes a
+# row it takes, threads a block at most
+SCAT_VEC, SCAT_LANES, SCAT_MAX_THREADS = 4, (8, 16, 32), 256
+# scat_geometry: the harmonics a lane holds and the warps an SM it fills
+# before it widens a row's lanes, and its threads a block
+SCAT_LANE_HARMONICS, SCAT_FILL_WARPS, SCAT_BLOCK_THREADS = 128, 8, 64
+# and the M2 rows a tile of rows when they are taken item by item
+SCAT_TILE = 16
 
 
 def phase_moments_reference(phis, Gr, Gi):
@@ -227,6 +242,137 @@ def scattering_moments_reference(phis, taus, Gr, Gi, M2, absolute=False):
                  for f, t in zip(_SCAT_FACTORS, terms))
 
 
+def scat_geometry(rows: int, nh: int, nsm: int = 132, m2_rows=None,
+                  l2_bytes: int = 50 * 2 ** 20):
+    """(lanes per row, rows per block, M2 rows a tile) of
+    csrc/scat_moments.cu, for `rows` rows of nh harmonics reading m2_rows
+    M2 rows (default: one each), on nsm SMs sharing l2_bytes of L2.
+
+    Lanes: 8 (a row's setup and its 3-level reduction shared by 4 rows a
+    warp), widened while a lane would hold SCAT_LANE_HARMONICS harmonics or
+    more, or the grid would hold fewer than SCAT_FILL_WARPS warps an SM,
+    as long as a row has a group of SCAT_VEC harmonics for every new lane.
+    Rows per block: SCAT_BLOCK_THREADS threads, halved while the grid would
+    have fewer than two blocks an SM.  Tile: row order (m2_rows) for one
+    item, or while an item's pass over its rows (Gr, Gi and M2: 12 nh
+    bytes a row) fits in half the L2, so that each M2 row is still there
+    for the next item; else SCAT_TILE M2 rows, item by item.
+    scripts/torch_scat_tune.py measures the choices against the others.
+    """
+    lanes, groups = 8, -(-nh // SCAT_VEC)
+    while 2 * lanes <= min(32, groups) and (
+            nh >= SCAT_LANE_HARMONICS * lanes or
+            rows * lanes < SCAT_FILL_WARPS * 32 * nsm):
+        lanes *= 2
+    rpb = SCAT_BLOCK_THREADS // lanes
+    while rpb * lanes > 32 and -(-rows // rpb) < 2 * nsm:
+        rpb //= 2
+    m2_rows = rows if m2_rows is None else m2_rows
+    tile = m2_rows
+    if m2_rows < rows and 12 * nh * m2_rows > l2_bytes // 2:
+        tile = min(SCAT_TILE, m2_rows)
+    return lanes, rpb, tile
+
+
+def _phase_trig_rn(p, k):
+    """cos/sin(2 pi p k) of wrapped phases p (...,) at k (..., n), as
+    csrc/phase_trig.cuh phase_trig_rn forms them: float32 rounds the angle
+    once (p k and its reduction mod 1 are exact in float64); float64 is
+    fitters.stats._phase_trig's plain product."""
+    if p.dtype == torch.float64:
+        return _phase_trig(p, k)
+    x = p.double()[..., None] * k.double()
+    ang = (TWO_PI * (x - torch.round(x))).to(p.dtype)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def _scat_phasor(p, h0, lanes, vec, steps):
+    """(Re, Im) of e^{2 pi i p k}, (rows, steps, lanes, vec), at k = h0 +
+    vec (l + lanes j) + m, formed as the kernel forms it: F_l E_m S_j with
+    F_l = e^{2 pi i p (h0 + vec l)}, E_m = e^{2 pi i p m}, S_j =
+    e^{2 pi i p vec lanes j}; F_l E_m first, then one complex product.
+    p (rows,) wrapped phases, h0 (rows,) integers."""
+    dev, dt = p.device, p.dtype
+
+    def ar(n):
+        return torch.arange(n, device=dev)
+    fc, fs = _phase_trig_rn(p, (h0[:, None] + vec * ar(lanes)).to(dt))
+    ec, es = _phase_trig_rn(p, ar(vec).to(dt))
+    sc, ss = _phase_trig_rn(p, (vec * lanes * ar(steps)).to(dt))
+    ler = fc[:, :, None] * ec[:, None, :] - fs[:, :, None] * es[:, None, :]
+    lei = fc[:, :, None] * es[:, None, :] + fs[:, :, None] * ec[:, None, :]
+    ler, lei = ler[:, None], lei[:, None]
+    sc, ss = sc[:, :, None, None], ss[:, :, None, None]
+    return ler * sc - lei * ss, ler * ss + lei * sc
+
+
+def scattering_moments_factored_reference(phis, taus, Gr, Gi, M2, lanes,
+                                          vec=SCAT_VEC, base=0):
+    """The nine scattering sums by csrc/scat_moments.cu's own steps, in
+    Gr's dtype (tests only; the wrapper's CPU path is the twin).
+
+    Row r starts at offset o = (base + r nharm) mod vec of a vec-aligned
+    storage (base: Gr's own offset, in elements); h0 = -o.  Lane l of
+    `lanes` takes the groups g = l + lanes j of vec harmonics h0 + vec g ..
+    + vec - 1 (zero outside 0..nharm-1) under the factored phasor
+    (_scat_phasor), sums the closed forms over its groups, and the lanes
+    are added by the kernel's butterfly; then the constant factors.
+    """
+    nh = Gr.shape[-1]
+    rows = phis.numel()
+    dev, dt = Gr.device, Gr.dtype
+    p = phis.reshape(rows)
+    p = p - torch.round(p)
+    tau = taus.reshape(rows)
+    m2 = M2.reshape(-1, nh)
+    idx = torch.arange(rows, device=dev)
+    m2 = m2[idx % m2.shape[0]]
+    h0 = -((base + idx * nh) % vec)
+    steps = -(-((nh + 2 * (vec - 1)) // vec) // lanes)
+    k = (h0[:, None, None, None] + vec * (
+        torch.arange(lanes, device=dev)[None, None, :, None] + lanes *
+        torch.arange(steps, device=dev)[None, :, None, None]) +
+        torch.arange(vec, device=dev))
+    ok = (k >= 0) & (k < nh)
+    kc = k.clamp(0, nh - 1).reshape(rows, -1)
+
+    def take(t):
+        return torch.where(ok, t.reshape(rows, nh).gather(1, kc).reshape(
+            k.shape), torch.zeros((), dtype=dt, device=dev))
+    x, y, mm = take(Gr), take(Gi), take(m2)
+    pr, pi = _scat_phasor(p, h0, lanes, vec, steps)
+    kf = k.to(dt)
+    c = (TWO_PI * tau).to(dt)[:, None, None, None] * kf
+    br = 1.0 / (c * c + 1.0)
+    bi = -c * br
+    gpr = x * pr - y * pi
+    gpi = x * pi + y * pr
+    zr = gpr * br + gpi * bi
+    zi = gpi * br - gpr * bi
+    wr = zr * br + zi * bi
+    wi = zi * br - zr * bi
+    vr = wr * br + wi * bi
+    k2 = kf * kf
+    t = br * mm
+    u = k2 * (br * t)
+    terms = (zr, t, kf * zi, kf * wi, u, k2 * zr, k2 * wr, k2 * vr,
+             u * br * (3.0 * c * c - 1.0))
+    lane_ix = torch.arange(lanes, device=dev)
+    sums = []
+    for term in terms:
+        a = term.sum(dim=(1, 3))                       # (rows, lanes)
+        o = lanes // 2
+        while o:
+            a = a + a[:, lane_ix ^ o]
+            o //= 2
+        sums.append(a[:, 0])
+    C, S, Cp, Rf, S1, Cpp, If1, Rg, S2 = sums
+    f2, f4, f8 = -TWO_PI, -TWO_PI * TWO_PI, -2.0 * TWO_PI * TWO_PI
+    out = (C, S, f2 * Cp, f2 * Rf, (f8 * tau) * S1, f4 * Cpp, f4 * If1,
+           f8 * Rg, -f8 * S2)
+    return tuple(v.reshape(phis.shape) for v in out)
+
+
 def scattering_moments(phis, taus, Gr, Gi, M2):
     """(C, S, Cp, Rf, S1, Cpp, If1, Rg, S2), each (..., nchan), from phis
     and taus (..., nchan), Gr/Gi (..., nchan, nharm) and M2 (nchan, nharm)
@@ -261,7 +407,25 @@ def _check_nharm(name, nharm):
                          f"1..{MAX_NHARM} (double-single exactness bound)")
 
 
-def _launch_scat(phis, taus, Gr, Gi, M2):
+@functools.lru_cache(maxsize=None)
+def _card(device):
+    """(SMs, L2 bytes) of a card."""
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count, props.L2_cache_size
+
+
+def scat_launch_geometry(phis, M2):
+    """The geometry scattering_moments launches csrc/scat_moments.cu with
+    for these CUDA tensors (scat_geometry on their card)."""
+    nh = M2.shape[-1]
+    nsm, l2 = _card(M2.device)
+    return scat_geometry(phis.numel(), nh, nsm, M2.numel() // nh, l2)
+
+
+def _launch_scat(phis, taus, Gr, Gi, M2, geometry=None):
+    """csrc/scat_moments.cu; geometry (lanes per row, rows per block, M2
+    rows a tile), default scat_geometry (scripts/torch_scat_tune.py sweeps
+    it)."""
     from pulseportraiture_tpu_torch._build import load_kernels
 
     _check_f32("scattering_moments", (("phis", phis), ("taus", taus),
@@ -287,6 +451,7 @@ def _launch_scat(phis, taus, Gr, Gi, M2):
     out = torch.empty((9,) + tuple(phis.shape), dtype=torch.float32,
                       device=Gr.device)
     if rows:
+        lanes, rpb, tile = geometry or scat_launch_geometry(phis, M2)
         lib = load_kernels()
         stream = torch.cuda.current_stream(Gr.device).cuda_stream
         err = lib.pp_scat_moments(
@@ -294,7 +459,8 @@ def _launch_scat(phis, taus, Gr, Gi, M2):
             ctypes.c_void_p(Gr.data_ptr()), ctypes.c_void_p(Gi.data_ptr()),
             ctypes.c_void_p(M2.data_ptr()), ctypes.c_void_p(out.data_ptr()),
             ctypes.c_longlong(rows), ctypes.c_longlong(m2_rows),
-            ctypes.c_int(nharm), ctypes.c_void_p(stream))
+            ctypes.c_int(nharm), ctypes.c_int(lanes), ctypes.c_int(rpb),
+            ctypes.c_longlong(tile), ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(f"pp_scat_moments launch failed: CUDA error "
                                f"{err} ({lib.pp_error_string(err).decode()})")

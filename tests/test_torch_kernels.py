@@ -67,33 +67,132 @@ def test_phase_moments_kernel_matches_twin(cuda, nh):
         assert np.all(err <= 2e-6 * (w + scale)), (kp, err.max())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("nh,shared_m2", [(128, True), (1025, True),
-                                          (2049, True), (200, False)])
-def test_scattering_moments_kernel_matches_twin(cuda, nh, shared_m2):
-    rng = np.random.default_rng(nh + 7)
-    B, nchan = 3, 77
-    freqs = np.linspace(1100.0, 1900.0, nchan)
-    Gr = rng.normal(size=(B, nchan, nh)).astype(np.float32)
-    Gi = rng.normal(size=(B, nchan, nh)).astype(np.float32)
-    M2 = np.abs(rng.normal(size=(nchan, nh) if shared_m2 else
-                           (B, nchan, nh))).astype(np.float32)
-    phis = rng.uniform(-3.0, 3.0, (B, nchan)).astype(np.float32)
+def _scat_inputs(rng, lead, nh, shared_m2):
+    """(phis, taus, Gr, Gi, M2) float32 numpy: taus around 8e-3
+    (nu/1500)^-4 over two decades, the first rows of item 0 unscattered."""
+    freqs = np.linspace(1100.0, 1900.0, lead[-1])
+    Gr = rng.normal(size=lead + (nh,)).astype(np.float32)
+    Gi = rng.normal(size=lead + (nh,)).astype(np.float32)
+    M2 = np.abs(rng.normal(size=lead[-1:] + (nh,) if shared_m2 else
+                           lead + (nh,))).astype(np.float32)
+    phis = rng.uniform(-3.0, 3.0, lead).astype(np.float32)
     taus = (8e-3 * (freqs / 1500.0) ** -4.0 *
-            10.0 ** rng.uniform(-1.0, 1.0, (B, nchan))).astype(np.float32)
-    taus[0, :3] = 0.0                           # unscattered rows
-    t = [torch.from_numpy(a).to(cuda) for a in (phis, taus, Gr, Gi, M2)]
+            10.0 ** rng.uniform(-1.0, 1.0, lead)).astype(np.float32)
+    taus.reshape(-1)[:3] = 0.0                  # unscattered rows
+    return phis, taus, Gr, Gi, M2
+
+
+def _complex_scale(t):
+    """sum_k of the magnitudes of the complex products whose real or
+    imaginary parts the 9 sums add (|z| = |G| |B|, |w| = |G| |B|^2, |v| =
+    |G| |B|^3), and for S2 of its two parts, |f|^2 and Re(B conj g)
+    (8 pi^2 k^2 |B|^6 (3 c^2 + 1) M2), times the sums' k and constant
+    factors, float64; S and S1 add real products: their absolute twin."""
+    phis, taus, Gr, Gi, M2 = [a.double() for a in t]
+    nh = Gr.shape[-1]
+    k = torch.arange(nh, dtype=torch.float64, device=Gr.device)
+    c2 = (2 * np.pi * k * taus[..., None]) ** 2
+    b2 = 1.0 / (1.0 + c2)                                       # |B|^2
+    g = torch.hypot(Gr, Gi)
+    z, w, v = g * b2.sqrt(), g * b2, g * b2 ** 1.5
+    s = mom.scattering_moments_reference(phis, taus, Gr, Gi, M2,
+                                         absolute=True)
+    f1, f2 = 2 * np.pi, 4 * np.pi ** 2
+    return (z.sum(-1), s[1], f1 * (k * z).sum(-1), f1 * (k * w).sum(-1),
+            s[4], f2 * (k * k * z).sum(-1), f2 * (k * k * w).sum(-1),
+            2 * f2 * (k * k * v).sum(-1),
+            2 * f2 * (k * k * b2 ** 3 * (3 * c2 + 1) * M2).sum(-1))
+
+
+def _check_scat(got, t, lanes, base=0):
+    """Each of the 9 sums within 2e-6 of sum |summand| of the float64
+    twin, and of the kernel's own algorithm in float32
+    (scattering_moments_factored_reference) on the card.  With nh <= 3
+    the few summands' real or imaginary parts can be far below the
+    magnitudes float32 rounds (the plain float32 twin itself fails 2e-6
+    sum |summand| at nh=3): there the scale is _complex_scale."""
+    ref = mom.scattering_moments_reference(*[a.double() for a in t])
+    bound = mom.scattering_moments_reference(*[a.double() for a in t],
+                                             absolute=True)
+    if t[2].shape[-1] <= 3:
+        bound = _complex_scale(t)
+    fac = mom.scattering_moments_factored_reference(*t, lanes=lanes,
+                                                    base=base)
+    for j, (g, r, f, b) in enumerate(zip(got, ref, fac, bound)):
+        assert g.dtype == torch.float32 and g.shape == t[0].shape
+        err = (g.double() - r).abs()
+        assert bool((err <= 2e-6 * b).all()), (j, float(err.max()))
+        err = (g.double() - f.double()).abs()
+        assert bool((err <= 2e-6 * b).all()), (j, float(err.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh,shared_m2,lead", [
+    (128, True, (3, 77)), (1025, True, (3, 77)), (2049, True, (3, 77)),
+    (200, False, (3, 77)), (1, True, (3, 77)), (3, True, (3, 77)),
+    (129, True, (3, 77)), (2049, False, (3, 77)), (4097, True, (2, 9)),
+    (1025, False, (4096, 1)), (128, False, (4096, 1)),
+])
+def test_scattering_moments_kernel_matches_twin(cuda, nh, shared_m2, lead):
+    """Ragged nh (every row offset mod 4), and 4096 items of one channel
+    with an M2 row each (the narrowband fit_scat path); a second call
+    gives the same bits."""
+    rng = np.random.default_rng(nh + 7)
+    t = [torch.from_numpy(a).to(cuda)
+         for a in _scat_inputs(rng, lead, nh, shared_m2)]
     n0 = mom.scattering_moments.launches
     got = mom.scattering_moments(*t)
     torch.cuda.synchronize()
     assert mom.scattering_moments.launches == n0 + 1
-    ref = mom.scattering_moments_reference(*[a.double() for a in t])
-    bound = mom.scattering_moments_reference(*[a.double() for a in t],
-                                             absolute=True)
-    for j, (g, r, b) in enumerate(zip(got, ref, bound)):
-        assert g.dtype == torch.float32 and g.shape == (B, nchan)
-        err = (g.double() - r).abs()
-        assert bool((err <= 2e-6 * b).all()), (j, float(err.max()))
+    _check_scat(got, t, mom.scat_launch_geometry(t[0], t[4])[0])
+    again = mom.scattering_moments(*t)
+    torch.cuda.synchronize()
+    for j, (g, a) in enumerate(zip(got, again)):
+        assert torch.equal(g, a), j
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+@pytest.mark.parametrize("threads", [32, 64, 128, 256])
+def test_scattering_moments_kernel_every_geometry(cuda, lanes, threads):
+    """Every (lanes, rows per block) the kernel takes and
+    scripts/torch_scat_tune.py sweeps, at a ragged row count and nh, in
+    row order and in tiles of 16 and of 7 M2 rows (the last tile short):
+    the same bits in every order."""
+    rng = np.random.default_rng(lanes + threads)
+    t = [torch.from_numpy(a).to(cuda)
+         for a in _scat_inputs(rng, (3, 45), 1025, True)]
+    first = None
+    for tile in (45, 16, 7):
+        got = mom._launch_scat(*t, geometry=(lanes, threads // lanes, tile))
+        torch.cuda.synchronize()
+        _check_scat(got, t, lanes)
+        first = first or got
+        for j, (g, f) in enumerate(zip(got, first)):
+            assert torch.equal(g, f), (tile, j)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off_r,off_i,off_m", [(1, 1, 1), (2, 2, 0),
+                                               (3, 1, 2), (0, 3, 3)])
+def test_scattering_moments_kernel_offset_views(cuda, off_r, off_i, off_m):
+    """Gr, Gi and M2 as contiguous views that start off_* elements into
+    their storage: the aligned body moves with Gr's offset; a Gi or M2 at
+    another offset mod 16 bytes is read by 32-bit loads."""
+    rng = np.random.default_rng(off_r + 4 * off_i + 16 * off_m)
+    arrs = _scat_inputs(rng, (2, 33), 259, True)
+
+    def view(a, off):
+        buf = torch.zeros(a.size + off, dtype=torch.float32, device=cuda)
+        buf[off:] = torch.from_numpy(a.ravel()).to(cuda)
+        v = buf[off:].view(a.shape)
+        assert v.is_contiguous() and v.data_ptr() % 16 == 4 * off
+        return v
+    t = [torch.from_numpy(a).to(cuda) for a in arrs[:2]]
+    t += [view(arrs[2], off_r), view(arrs[3], off_i), view(arrs[4], off_m)]
+    got = mom._launch_scat(*t, geometry=(8, 4, 33))
+    torch.cuda.synchronize()
+    _check_scat(got, t, 8, base=off_r)
 
 
 @pytest.mark.cuda
