@@ -64,7 +64,22 @@ parallel), then:
      and SIS shifts within 1e-6 rot, PIS and GIS within one bin of PGS,
      every error finite and positive above S/N 8;
  12. the (phi, DM) pipeline once more with a two-component .gmodel
-     template written here: injected dDM within 3 sigma.
+     template written here: injected dDM within 3 sigma;
+ 13. the batched (phi, DM, GM) fit at 4096 x 2048, B=64, capped and full
+     band, on phase 4's recipe with a GM whose nu^-4 delay spans up to
+     +-0.005 rot across the band: every item converged, phi (at the fit
+     frequency), DM and GM within 5 sigma of the injection, nu_DM inside
+     the band, the card's float32 route within 0.01 sigma of the float64
+     twin route on the CPU on 8 items; fits/s and mean niter;
+ 14. get_TOAs(fit_GM=True) on phase 6's archives and, with fit_scat, on
+     phase 7's: gm and gm_err on every .tim line, injected dDM within 3
+     sigma, and one archive's TOAs, DMs and GMs within 0.01 sigma of the
+     port's float64 run on the CPU;
+ 15. channel zapping: one archive x 4 subints whose four channels carry
+     interference; get_channels_to_zap after the card run returns them,
+     as its show_fit path and the float64 CPU run do; the model-free
+     zap_archive writes an archive whose weights zero them, and get_TOAs
+     runs on it.
 ptxas's registers and spills are printed for every kernel; a spill in the
 setup FFT or the scattering kernel fails the run.  Launch counts are
 reset before each pipeline run (the main paths) and
@@ -801,12 +816,16 @@ def phase_scat_fit(dev):
     return out
 
 
-def write_archives(rng, nsub=8, t_scat=0.0, tag="epoch", narch=2):
+def write_archives(rng, nsub=8, t_scat=0.0, tag="epoch", narch=2,
+                   rfi_chans=()):
     """narch (at most two) int16 archives x nsub subints (scattered by
     t_scat [s] at 1500 MHz, index -4, when t_scat > 0) + a float32
-    noiseless template.  Returns (files, dDMs, template file, the
-    injected per-channel phases [rot] of every subint, (narch, nsub,
-    nchan): the data are the template rotated EARLIER by that much)."""
+    noiseless template.  rfi_chans get 5x the noise, white, and as much
+    again confined to the lower half of the spectrum (interference the
+    power-spectrum noise estimate does not see).  Returns (files, dDMs,
+    template file, the injected per-channel phases [rot] of every
+    subint, (narch, nsub, nchan): the data are the template rotated
+    EARLIER by that much)."""
     import numpy as np
 
     from pulseportraiture_tpu_torch.config import DCONST
@@ -854,6 +873,14 @@ def write_archives(rng, nsub=8, t_scat=0.0, tag="epoch", narch=2):
             data[i, 0] = np.fft.irfft(mft_d * np.exp(1j * theta), n=NBIN,
                                       axis=-1)
         data += rng.normal(0.0, NOISE, data.shape)
+        if len(rfi_chans):
+            rfi = list(rfi_chans)
+            data[:, 0, rfi] += rng.normal(0.0, 5 * NOISE,
+                                          (nsub, len(rfi), NBIN))
+            spec = np.fft.rfft(rng.normal(0.0, 5 * NOISE,
+                                          (nsub, len(rfi), NBIN)), axis=-1)
+            spec[..., NBIN // 4:] = 0.0
+            data[:, 0, rfi] += np.fft.irfft(spec, n=NBIN, axis=-1)
         path = os.path.join(WORK, f"{tag}{ia}.fits")
         write_psrfits(path, arch(data, DM, ia + 1), dtype="i2")
         files.append(path)
@@ -881,7 +908,8 @@ def read_launches():
 
 
 def phase_pipeline(rng):
-    """GetTOAs on the card; returns the launch counts of its run."""
+    """GetTOAs on the card; returns the launch counts of its run and its
+    archives (files, dDMs, template)."""
     import numpy as np
 
     from pulseportraiture_tpu_torch.io.tim import write_TOAs
@@ -917,11 +945,12 @@ def phase_pipeline(rng):
     if min(launches["fused_setup"], launches["phase_moments"]) <= 0:
         raise AssertionError(f"a kernel did not launch on the main path: "
                              f"{launches}")
-    return launches
+    return launches, (files, dDMs, tmpl)
 
 
 def phase_pipeline_scat(rng):
-    """GetTOAs(fit_scat=True) on the card; returns its launch counts."""
+    """GetTOAs(fit_scat=True) on the card; returns its launch counts and
+    its archives (files, dDMs, template)."""
     import numpy as np
 
     from pulseportraiture_tpu_torch.io.tim import write_TOAs
@@ -965,7 +994,7 @@ def phase_pipeline_scat(rng):
     if min(launches["fused_setup"], launches["scattering_moments"]) <= 0:
         raise AssertionError(f"a kernel did not launch on the fit_scat "
                              f"path: {launches}")
-    return launches
+    return launches, (files, dDMs, tmpl)
 
 
 def phase_merged_kernel(dev):
@@ -1266,6 +1295,274 @@ def phase_pipeline_gmodel(files, dDMs):
     return launches
 
 
+def gm_recipe(dev, B, seed=5):
+    """phidm_recipe's data with a GM injected: bench_template shifted by
+    phi ~ U(-0.01, 0.01) rot, DM ~ U(-2e-4, 2e-4) and a GM whose nu^-4
+    delay spans up to +-0.005 rot across the band, all at the band's mean
+    frequency, noise NOISE.  Returns (data, freqs, model, phis, dms, gms,
+    nu_fit)."""
+    import torch
+
+    from pulseportraiture_tpu_torch.config import DCONST
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device=dev)
+    freqs = torch.linspace(1100.0, 1900.0, NCHAN, **f64)
+    model = bench_template(freqs.cpu().numpy())
+    nu_fit = float(freqs.mean())
+    span4 = DCONST ** 2 / P * (1100.0 ** -4 - 1900.0 ** -4)
+    phis = torch.rand(B, generator=gen, **f64) * 0.02 - 0.01
+    dms = torch.rand(B, generator=gen, **f64) * 4e-4 - 2e-4
+    gms = (torch.rand(B, generator=gen, **f64) * 2.0 - 1.0) * 0.005 / span4
+    shifts = phis[:, None] + DCONST * dms[:, None] / P * (
+        freqs[None, :] ** -2 - nu_fit ** -2) + \
+        DCONST ** 2 * gms[:, None] / P * (freqs[None, :] ** -4 -
+                                          nu_fit ** -4)
+    mft = torch.fft.rfft(torch.as_tensor(model, **f64), dim=-1)
+    data = shifted_data(mft, shifts, gen, NOISE, dev)
+    return data, freqs, model, phis, dms, gms, nu_fit
+
+
+def phase_gm_fit(dev):
+    """Batched (phi, DM, GM) fits at 4096 x 2048, B=64, capped and full
+    band, on gm_recipe's data."""
+    import torch
+
+    from pulseportraiture_tpu_torch.config import DCONST
+    from pulseportraiture_tpu_torch.fitters.portrait import \
+        fit_portrait_full_batch
+    from pulseportraiture_tpu_torch.ops import moments as mom
+    from pulseportraiture_tpu_torch.ops import setup_dft as sdft
+
+    B, ff = 64, (1, 1, 1, 0, 0)
+    data, freqs, model, phis, dms, gms, nu_fit = gm_recipe(dev, B)
+    routes = template_routes(model)
+
+    def args(d, dt, n):
+        t = dict(dtype=dt, device=d)
+        return (torch.zeros((n, 5), **t), torch.full((n,), P, **t),
+                freqs.to(**t), torch.full((n, NCHAN), NOISE, **t))
+
+    def at_fit(res):
+        """(phi at nu_fit, DM, GM) and their sigmas, float64 on the CPU:
+        phi moved from the output reference by DM and GM, its sigma from
+        the fitted covariance."""
+        p = res.params.double().cpu()
+        nu = res.nu_DM.double().cpu()
+        j2 = DCONST / P * (nu_fit ** -2 - nu ** -2)
+        j4 = DCONST ** 2 / P * (nu_fit ** -4 - nu ** -4)
+        J = torch.stack([torch.ones_like(j2), j2, j4], dim=-1)
+        C = res.covariance_matrix.double().cpu()[:, :3, :3]
+        sig_phi = torch.sqrt(torch.einsum("bi,bij,bj->b", J, C, J))
+        e = res.param_errs.double().cpu()
+        phi = p[:, 0] + j2 * p[:, 1] + j4 * p[:, 2]
+        return (torch.stack([phi, p[:, 1], p[:, 2]], dim=-1),
+                torch.stack([sig_phi, e[:, 1], e[:, 2]], dim=-1))
+
+    inj = torch.stack([phis, dms, gms], dim=-1).cpu()
+    out = {}
+    sd0, mm0 = sdft.fused_setup.launches, mom.phase_moments.launches
+    fft0 = sdft.fused_setup.routes["fft"]
+    for name, mft_ri in routes.items():
+        def run():
+            return fit_portrait_full_batch(
+                data, mft_ri, *args(dev, torch.float32, B),
+                nu_fits=torch.full((B, 3), nu_fit, dtype=torch.float32,
+                                   device=dev), fit_flags=ff,
+                dtype=torch.float32)
+        res = run()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        sec = statistics.median(times)
+        rc = res.return_code.cpu()
+        if not bool((rc < 3).all()):
+            raise AssertionError(f"gm fit[{name}] items not converged: {rc}")
+        nu = res.nu_DM.double().cpu()
+        if not bool(((nu > 1100.0) & (nu < 1900.0)).all()):
+            raise AssertionError(f"gm fit[{name}] nu_DM outside the band: "
+                                 f"{nu.min().item()}..{nu.max().item()}")
+        v, sig = at_fit(res)
+        z = ((v - inj) / sig).abs().amax(dim=0).tolist()
+        if max(z) > 5:
+            raise AssertionError(f"gm fit[{name}] off the injection: "
+                                 f"phi, DM, GM {z} sigma")
+        nc = 8
+        cpu = torch.device("cpu")
+        ref = fit_portrait_full_batch(
+            data[:nc].cpu(), mft_ri, *args(cpu, torch.float64, nc),
+            nu_fits=torch.full((nc, 3), nu_fit, dtype=torch.float64),
+            fit_flags=ff, dtype=torch.float64)
+        rv, rsig = at_fit(ref)
+        agree = ((v[:nc] - rv) / rsig).abs().amax(dim=0).tolist()
+        mean_niter = float(res.niter.double().mean())
+        log(f"gm fit[{name}] B={B} nh={mft_ri[0].shape[-1]}: "
+            f"{B / sec:.2f} fits/s ({sec * 1e3:.2f} ms/batch, median of 3), "
+            f"mean niter {mean_niter}, max |z| (phi, DM, GM) {z}, nu_DM "
+            f"{nu.min().item():.3f}..{nu.max().item():.3f} MHz, card route "
+            f"vs f64 twin route (phi, DM, GM) {agree} sigma")
+        if max(agree) > 1e-2:
+            raise AssertionError(f"gm fit[{name}] kernel route vs f64 twin "
+                                 f"route: {agree} sigma > 0.01")
+        out[name] = dict(fits_per_s=B / sec, sec_per_batch=sec,
+                         mean_niter=mean_niter, twin_sigma=agree, max_z=z)
+    launches = (sdft.fused_setup.launches - sd0,
+                mom.phase_moments.launches - mm0)
+    log(f"gm-fit phase launches: fused_setup {launches[0]}, "
+        f"phase_moments {launches[1]}")
+    if min(launches) <= 0:
+        raise AssertionError("a kernel did not launch in the gm-fit phase")
+    if sdft.fused_setup.routes["fft"] - fft0 != launches[0]:
+        raise AssertionError("a setup launch of the gm-fit phase left the "
+                             "FFT route")
+    return out
+
+
+def toa_sigmas(got, want):
+    """Largest |TOA| (moved to want's frequency by want's DM and GM), |DM|
+    and |GM| differences of two TOA lists of one archive, in want's
+    sigmas."""
+    from pulseportraiture_tpu_torch.config import DCONST
+    z = [0.0, 0.0, 0.0]
+    for a, b in zip(got, want):
+        gm = b.flags.get("gm", 0.0)
+        dt = (a.MJD - b.MJD) + DCONST * b.DM * (
+            b.frequency ** -2 - a.frequency ** -2) + DCONST ** 2 * gm * (
+            b.frequency ** -4 - a.frequency ** -4)
+        z[0] = max(z[0], abs(dt) * 1e6 / b.TOA_error)
+        z[1] = max(z[1], abs(a.DM - b.DM) / b.DM_error)
+        if "gm" in b.flags:
+            z[2] = max(z[2], abs(a.flags["gm"] - gm) / b.flags["gm_err"])
+    return z
+
+
+def phase_pipeline_gm(pipe_arch, scat_arch):
+    """GetTOAs(fit_GM=True) on the card on the pipeline phase's archives,
+    and with fit_scat on the scattered ones; returns the launch counts of
+    each run and the figures."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu_torch.io.tim import write_TOAs
+    from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
+
+    rec, launches = {}, {}
+    for name, (files, dDMs, tmpl), kw in (
+            ("pipeline_gm", pipe_arch, dict(fit_GM=True)),
+            ("pipeline_gm_fit_scat", scat_arch,
+             dict(fit_GM=True, fit_scat=True))):
+        gt = GetTOAs(files, tmpl, device="cuda", quiet=True)
+        reset_launches()
+        t0 = time.perf_counter()
+        gt.get_TOAs(quiet=True, **kw)
+        wall = time.perf_counter() - t0
+        launches[name] = read_launches()
+        lines = write_TOAs(gt.TOA_list, outfile=os.path.join(
+            WORK, f"{name}.tim"), append=False)
+        recd = np.asarray(gt.DeltaDM_means)
+        err = np.asarray(gt.DeltaDM_errs)
+        gz = [t.flags["gm"] / t.flags["gm_err"] for t in gt.TOA_list]
+        log(f"{name}: {len(lines)} TOAs in {wall:.2f} s (timing "
+            f"{json.dumps(gt.fit_timing)}); DeltaDM {recd.tolist()} +- "
+            f"{err.tolist()}, injected {dDMs}; GM/sigma (none injected) "
+            f"{[round(z, 3) for z in gz]}; launches {launches[name]}")
+        log(f"{name}: " + lines[0])
+        if len(lines) != (16 if name == "pipeline_gm" else 8) or not all(
+                " -gm " in ln and " -gm_err " in ln for ln in lines):
+            raise AssertionError(f"{name}: {len(lines)} TOA lines, or a "
+                                 "line without gm/gm_err")
+        if not np.all(np.abs(recd - dDMs) <= 3 * err):
+            raise AssertionError(f"{name}: injected dDM not recovered "
+                                 "within 3 sigma")
+        kern = "scattering_moments" if "scat" in name else "phase_moments"
+        if min(launches[name]["fused_setup"], launches[name][kern]) <= 0:
+            raise AssertionError(f"a kernel did not launch on the {name} "
+                                 f"path: {launches[name]}")
+        rec[name] = dict(toas=len(lines), wall_s=wall,
+                         max_gm_over_sigma=max(abs(z) for z in gz))
+        # one archive through the float64 twins on the CPU
+        t0 = time.perf_counter()
+        ref = GetTOAs(files[:1], tmpl, device="cpu",
+                      dtype=torch.float64, quiet=True)
+        ref.get_TOAs(quiet=True, **kw)
+        z = toa_sigmas(gt.TOA_list[:len(ref.TOA_list)], ref.TOA_list)
+        log(f"{name}: card vs the float64 CPU run of {files[0]} "
+            f"(TOA, DM, GM): {z} sigma ({time.perf_counter() - t0:.1f} "
+            f"s on the CPU)")
+        if max(z) > 1e-2:
+            raise AssertionError(f"{name}: card vs float64 CPU run "
+                                 f"{z} sigma > 0.01")
+        rec[name]["vs_f64_sigma"] = z
+    return launches["pipeline_gm"], launches["pipeline_gm_fit_scat"], rec
+
+
+def phase_zap(seed=42):
+    """Channel zapping on the card: one archive x 4 subints whose channels
+    at 1/42, 3/8, 1/2 and 13/16 of the band carry interference (5x the
+    noise), from its own seed (the phases after it keep their data);
+    returns the launch counts of its get_TOAs run and the figures."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu_torch.io.psrfits import read_psrfits
+    from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
+    from pulseportraiture_tpu_torch.pipelines.zap import zap_archive
+
+    chans = [NCHAN // 42, NCHAN * 3 // 8, NCHAN // 2, NCHAN * 13 // 16]
+    rng = np.random.default_rng(seed)
+    files, _, tmpl, _ = write_archives(rng, nsub=4, tag="zap", narch=1,
+                                       rfi_chans=chans)
+    gt = GetTOAs(files, tmpl, device="cuda", quiet=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    gt.get_TOAs(quiet=True)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    t0 = time.perf_counter()
+    zaps = gt.get_channels_to_zap()
+    zap_s = time.perf_counter() - t0
+    log(f"zap: {len(gt.TOA_list)} TOAs in {wall:.2f} s; "
+        f"get_channels_to_zap {zap_s * 1e3:.2f} ms: {zaps}; launches "
+        f"{launches}")
+    if zaps != [[chans] * 4]:
+        raise AssertionError(f"zap: channels {zaps}, injected {chans}")
+    gt.fit_channel_red_chi2s = []         # through show_fit on the card
+    t0 = time.perf_counter()
+    legacy = gt.get_channels_to_zap()
+    legacy_s = time.perf_counter() - t0
+    ref = GetTOAs(files, tmpl, device="cpu", dtype=torch.float64,
+                  quiet=True)
+    ref.get_TOAs(quiet=True)
+    ref_zaps = ref.get_channels_to_zap()
+    log(f"zap: show_fit path {legacy_s:.2f} s: {legacy}; float64 CPU run: "
+        f"{ref_zaps}")
+    if legacy != zaps or ref_zaps != zaps:
+        raise AssertionError("zap: the show_fit path or the float64 CPU run "
+                             "disagrees")
+    out = os.path.join(WORK, "zapped.fits")
+    free = zap_archive(files[0], out, device="cuda")
+    w = read_psrfits(out).weights
+    log(f"zap: zap_archive zapped {sorted({c for z in free for c in z})}")
+    if w[:, chans].any():
+        raise AssertionError("zap: zap_archive left an injected channel "
+                             "weighted")
+    gz = GetTOAs([out], tmpl, device="cuda", quiet=True)
+    gz.get_TOAs(quiet=True)
+    if len(gz.TOA_list) != 4 or gz.TOA_list[0].flags["nchx"] > \
+            NCHAN - len(chans):
+        raise AssertionError("zap: get_TOAs on the zapped archive")
+    if min(launches["fused_setup"], launches["phase_moments"]) <= 0:
+        raise AssertionError(f"a kernel did not launch on the zap path: "
+                             f"{launches}")
+    return launches, dict(channels=zaps[0][0], wall_s=wall,
+                          get_channels_to_zap_ms=zap_s * 1e3,
+                          show_fit_path_s=legacy_s,
+                          model_free=sorted({c for z in free for c in z}))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1301,9 +1598,14 @@ def main():
     mrec = phase_merged_kernel(dev)
     fits = phase_fit(dev)
     scat_fits = phase_scat_fit(dev)
+    gm_fits = phase_gm_fit(dev)
     try:
-        paths = {"pipeline": phase_pipeline(rng),
-                 "pipeline_fit_scat": phase_pipeline_scat(rng)}
+        paths = {}
+        paths["pipeline"], pipe_arch = phase_pipeline(rng)
+        paths["pipeline_fit_scat"], scat_arch = phase_pipeline_scat(rng)
+        paths["pipeline_gm"], paths["pipeline_gm_fit_scat"], pipeline_gm = \
+            phase_pipeline_gm(pipe_arch, scat_arch)
+        paths["zap"], zap_rec = phase_zap()
         t0 = time.perf_counter()
         nb_files, nb_dDMs, tmpl, injected = write_archives(rng, nsub=4,
                                                            tag="nb")
@@ -1365,7 +1667,8 @@ def main():
               "pulseportraiture_tpu_torch/csrc/moments_merged.cu",
               "scripts/tpu_moments_layout.py:138", [], mrec["subint"],
               {"probe": mrec["probe"]})],
-        "fits": fits, "scattering_fits": scat_fits,
+        "fits": fits, "scattering_fits": scat_fits, "gm_fits": gm_fits,
+        "pipeline_gm": pipeline_gm, "zap": zap_rec,
         "narrowband": narrowband, "narrowband_fit_scat": narrowband_scat,
         "psrchive": psrchive}
     print(json.dumps(summary), flush=True)

@@ -1,17 +1,18 @@
 """pptoas (port) — wideband and narrowband TOAs from folded archives.
 
     python -m pulseportraiture_tpu_torch.cli.pptoas -d epochs -m PSR.spl \
-        -o PSR.tim [--fit_scat [--fit_alpha] [--no_logscat]] \
+        -o PSR.tim [--fit_dt4] [--fit_scat [--fit_alpha] [--no_logscat]] \
         [--nu_ref MHz] [--nu_tau MHz] [--one_DM] [--princeton] \
         [--narrowband | --psrchive [--algorithm PGS]] [--device cuda|cpu]
 
-Runs the (phi, DM) fit, or with --fit_scat the scattering fit; with
---narrowband per-channel FFTFIT TOAs, with --psrchive per-channel TOAs by
-a pat-style estimator.  All on the chosen device: "cuda" (the default)
-needs a card and stops with an error without one.  The template is a
-.gmodel, a .spl or a FITS archive.  The princeton output path of the
-reference calls an undefined method (pptoas.py:1599-1601); here it writes
-through io.tim.write_princeton_TOA.  Reference CLI: pptoas.py:1422-1629.
+Runs the (phi, DM) fit, with --fit_dt4 also GM, with --fit_scat the
+scattering fit; with --narrowband per-channel FFTFIT TOAs, with
+--psrchive per-channel TOAs by a pat-style estimator.  All on the chosen
+device: "cuda" (the default) needs a card and stops with an error
+without one.  The template is a .gmodel, a .spl or a FITS archive.  The
+princeton output path of the reference calls an undefined method
+(pptoas.py:1599-1601); here it writes through io.tim.write_princeton_TOA.
+Reference CLI: pptoas.py:1422-1629.
 """
 
 from __future__ import annotations
@@ -56,7 +57,8 @@ def build_parser():
     p.add_argument("--fix_DM", action="store_true",
                    help="do not fit for DM")
     p.add_argument("--fit_dt4", action="store_true",
-                   help="fit for GM (nu^-4 delay); not ported yet")
+                   help="fit for GM (the nu^-4 delay); TOAs carry gm and "
+                        "gm_err flags")
     p.add_argument("--fit_scat", action="store_true",
                    help="fit for scattering timescale")
     p.add_argument("--no_logscat", action="store_true",

@@ -14,23 +14,34 @@ floor 8 eps |f|, the radius shrink on a non-finite trial, the speculative
 final step bounded by the last verified step length, the step_mask
 projection and the status codes.
 
-Two additions, which bind in float32 only (float64 runs stop where the
-JAX package's stop):
+Additions, which bind in float32 only (float64 runs stop where the JAX
+package's stop):
 - the subproblem is solved in float64 whatever the working dtype
   (_tr_solve);
 - the rounding-level stops (the relative gradient test 100 eps |g0|,
   the sub-floor decrease 8 eps |f| and the speculative step) wait for
   the Newton decrement g H^-1 g at the accepted point to be <= DEC_TOL,
-  or for a full (interior) step that failed to halve it (the floor that
-  the working precision of g and x sets).  Those stops are set by the
-  resolution of f and by the stiffest parameter, not by the parameters'
-  scales: in float32 they end a 4096-channel scattering fit several
-  sigma short of the optimum in tau and alpha.  The decrement is in f's
-  units, chi2 for the fits, so DEC_TOL bounds the distance to the
-  optimum, sqrt(DEC_TOL / 2) = 7e-4 sigma, whatever the scales.  Below
-  the resolution of f the ratio rho is noise, so after such a step the
-  radius is at least twice the Newton step: the item goes on by full
-  Newton steps, not by a radius-limited walk.
+  or for a full (interior) step that failed to halve it at the floor
+  that the working precision sets: within FLOOR_K times the decrement
+  that rounding of g and x allows (_newton_decrement; float64 keeps
+  the rule "failed to halve it" wherever the decrement is).  Those stops are
+  set by the resolution of f and by the stiffest parameter, not by the
+  parameters' scales: in float32 they end a 4096-channel scattering fit
+  several sigma short of the optimum in tau and alpha.  The decrement is
+  in f's units, chi2 for the fits, so DEC_TOL bounds the distance to the
+  optimum, sqrt(DEC_TOL / 2) = 7e-4 sigma, whatever the scales.  A
+  float32 Hessian that misses a weak direction makes Newton converge
+  linearly (the decrement falls by a steady 40% a step on a linear-tau
+  fit): far above the floor that is not a stall, and halving alone
+  stopped it 0.77 sigma short;
+- below the resolution of f the ratio rho is noise, so after such a step
+  the radius is at least twice the Newton step (the item goes on by full
+  Newton steps, not by a radius-limited walk), and where the Hessian is
+  indefinite a step to the boundary doubles the radius instead of
+  letting rho collapse it to xtol;
+- the subproblem takes Moré–Sorensen's hard case: negative curvature
+  that g barely sees gets the rest of the radius along the lowest
+  eigenvector, so a saddle that is flat to f's rounding is left.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from typing import Callable, NamedTuple
 import torch
 
 DEC_TOL = 1e-6
+FLOOR_K = 4.0
 
 RCSTRINGS = {
     0: "Converged (gradient norm below tolerance)",
@@ -66,7 +78,7 @@ def _mv(A, v):
     return (A @ v[..., None])[..., 0]
 
 
-def _tr_solve(g, H, radius):
+def _tr_solve(g, H, radius, hard_case=False):
     """Exact trust-region step: argmin g.p + 0.5 p H p, |p| <= radius.
 
     Batched over leading axes.  Solved in float64 whatever the working
@@ -109,25 +121,51 @@ def _tr_solve(g, H, radius):
     pb_norm = torch.sqrt(torch.sum(p_boundary ** 2, dim=-1) + eps * eps)
     p_boundary = p_boundary * torch.clamp(radius / pb_norm,
                                           max=1.0)[..., None]
+    if hard_case:
+        # negative curvature that g barely sees: p(mu) at the floor stays
+        # inside the region, so the rest of the radius goes along the
+        # lowest eigenvector, downhill (Moré–Sorensen's hard case)
+        short = (lam_min < 0.0) & (pb_norm < radius)
+        v0 = V[..., :, 0]
+        sgn = torch.where(gt[..., 0] > 0.0, -1.0, 1.0)
+        t = torch.sqrt(torch.clamp(radius ** 2 - pb_norm ** 2, min=0.0))
+        p_boundary = torch.where(short[..., None],
+                                 p_boundary + (sgn * t)[..., None] * v0,
+                                 p_boundary)
     p_interior = -_mv(V, p_of(zero))
     p = torch.where(interior_ok[..., None], p_interior, p_boundary)
     return p.to(dtype), ~interior_ok
 
 
-def _newton_decrement(g, H, mask):
+def _newton_decrement(g, H, mask, floor_of=None):
     """(g H^-1 g, |H^-1 g|) of the full Newton step, (B,) float64: a
     float64 Cholesky solve, which the parameters' scales do not
-    condition; inf where H is not positive definite."""
-    g64 = g.double()
-    L, info = torch.linalg.cholesky_ex(H.double())
+    condition; inf where H is not positive definite.  floor_of=(f, x,
+    eps): also the decrement that rounding at relative eps leaves, the
+    sum over the parameters i of eps^2 |H_ii| (|f| (H^-1)_ii + x_i^2):
+    g_i is a sum of residual x derivative terms, whose rounding is of
+    the order of eps sqrt(|f| |H_ii|) (Cauchy-Schwarz), and x_i is held to eps
+    |x_i|."""
+    g64, H64 = g.double(), H.double()
+    L, info = torch.linalg.cholesky_ex(H64)
     p = torch.cholesky_solve(g64[..., None], L)[..., 0]
     if mask is not None:
         p = p * mask.double()
     dec = torch.sum(g64 * p, dim=-1)
     ok = (info == 0) & torch.isfinite(dec)
     inf = torch.full_like(dec, math.inf)
-    return (torch.where(ok, dec, inf),
-            torch.where(ok, torch.sqrt(torch.sum(p * p, dim=-1)), inf))
+    out = (torch.where(ok, dec, inf),
+           torch.where(ok, torch.sqrt(torch.sum(p * p, dim=-1)), inf))
+    if floor_of is None:
+        return out
+    f, x, eps = floor_of
+    Hinv = torch.cholesky_inverse(L)
+    w = torch.abs(torch.diagonal(H64, dim1=-2, dim2=-1)) * (
+        torch.abs(f.double())[..., None] *
+        torch.diagonal(Hinv, dim1=-2, dim2=-1) + x.double() ** 2)
+    if mask is not None:
+        w = w * mask.double()
+    return out + (torch.where(ok, eps * eps * torch.sum(w, dim=-1), 0.0),)
 
 
 def _select(mask, a, b):
@@ -175,13 +213,14 @@ def trust_region_minimize(fgh: Callable, x0, max_iter: int = 100,
     status = torch.full((B,), 3, dtype=torch.int64, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     tiny = torch.full((), 1e-300, dtype=dtype, device=dev)  # 0 in f32
+    low = feps > 1e-10      # float32 objective: the rules below bind
     dec = torch.full((B,), math.inf, dtype=torch.float64, device=dev)
 
     while True:
         active = (~done) & (it < max_iter)
         if not bool(active.any()):
             break
-        p, hit = _tr_solve(g, H, radius)
+        p, hit = _tr_solve(g, H, radius, hard_case=low)
         if mask is not None:
             p = p * mask
         x_new = x + p
@@ -210,9 +249,19 @@ def trust_region_minimize(fgh: Callable, x0, max_iter: int = 100,
         g_n = _select(accept, g_new, g)
         H_n = _select(accept, H_new, H)
         aux_n = _select_aux(accept, out[3], aux) if has_aux else None
-        dec_n, newton_len = _newton_decrement(g_n, H_n, mask)
+        stall = accept & ~hit
+        if low:
+            # a full Newton step that fails to halve the decrement stalls
+            # only at the floor that rounding sets: slow (linear)
+            # convergence far above it, as where the float32 Hessian
+            # misses a weak direction, goes on
+            dec_n, newton_len, floor = _newton_decrement(
+                g_n, H_n, mask, floor_of=(f_n, x_n, feps))
+            stall = stall & (dec_n <= FLOOR_K * floor)
+        else:
+            dec_n, newton_len = _newton_decrement(g_n, H_n, mask)
+        stall = stall & (dec_n > 0.5 * dec)
         newton_len = newton_len.to(dtype)
-        stall = accept & ~hit & (dec_n > 0.5 * dec)
         resolved = (dec_n <= DEC_TOL) | stall
         # below the resolution of f rho cannot steer the radius: let an
         # item that goes on take the full Newton step
@@ -220,6 +269,13 @@ def trust_region_minimize(fgh: Callable, x0, max_iter: int = 100,
             accept & tiny_pred & torch.isfinite(newton_len),
             torch.clamp(torch.maximum(radius_n, 2.0 * newton_len),
                         max=max_radius), radius_n)
+        if low:
+            # nor, where H is not positive definite, may the radius
+            # collapse on a rho that is noise: the model steers, and a
+            # step to the boundary doubles it
+            radius_n = torch.where(
+                accept & tiny_pred & hit & ~torch.isfinite(newton_len),
+                torch.clamp(2.0 * radius, max=max_radius), radius_n)
         gnorm = torch.sqrt(torch.sum(g_n ** 2, dim=-1))
         gconv = (gnorm < gtol) | ((gnorm < gtol_rel * g0norm) & resolved)
         xconv = accept & (pnorm < xtol)
@@ -227,7 +283,7 @@ def trust_region_minimize(fgh: Callable, x0, max_iter: int = 100,
         # subproblem's predicted decrease is below the resolution of f
         # AND the step is no longer than the one just verified, take it
         # now and stop without paying its fgh evaluation
-        p2, _ = _tr_solve(g_n, H_n, radius_n)
+        p2, _ = _tr_solve(g_n, H_n, radius_n, hard_case=low)
         if mask is not None:
             p2 = p2 * mask
         pred2 = -(torch.sum(g_n * p2, dim=-1) +

@@ -15,19 +15,22 @@ covariance.  Reference: pptoaslib.py:928-1096.
 from __future__ import annotations
 
 import math
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from pulseportraiture_tpu_torch._device import require_f32_matmul
+from pulseportraiture_tpu_torch._device import as_tensor, require_f32_matmul
 from pulseportraiture_tpu_torch.config import DCONST, F0_FACT
 from pulseportraiture_tpu_torch.fitters import newton, nu_zeros, stats
+from pulseportraiture_tpu_torch.ops.noise import noise_PS_profiles
 from pulseportraiture_tpu_torch.ops.scattering import scattering_times
 from pulseportraiture_tpu_torch.ops.setup_dft import fused_setup
 from pulseportraiture_tpu_torch.ops.transform import (_inv2, _inv4,
                                                       mod_pm_half,
                                                       phase_shifts)
+from pulseportraiture_tpu_torch.utils import DataBunch
 
 
 class PortraitFitResult(NamedTuple):
@@ -247,11 +250,25 @@ def fit_portrait_full_batch(data_ports, model_ft_ri, init_params, Ps, freqs,
     (required with a template per item).
     nu_outs: optional (nu_DM, nu_GM, nu_tau) output references, each None
     (the zero-covariance frequency), a number or (B,); as in the JAX
-    package's fit_portrait_full, nu_GM follows nu_DM when DM is fitted.
+    package's fit_portrait_full, nu_GM follows nu_DM when DM is fitted
+    (and nu_DM follows nu_GM when only GM is).
     Returns a PortraitFitResult with a leading batch axis.
     """
+    return _fit_batch(data_ports, model_ft_ri, init_params, Ps, freqs, errs,
+                      weights=weights, nu_fits=nu_fits, fit_flags=fit_flags,
+                      log10_tau=log10_tau, max_iter=max_iter, scales=scales,
+                      dtype=dtype, seed_phase=seed_phase, nu_outs=nu_outs,
+                      scattering=scattering)[0]
+
+
+def _fit_batch(data_ports, model_ft_ri, init_params, Ps, freqs, errs,
+               weights=None, nu_fits=None, fit_flags=(1, 1, 0, 0, 0),
+               log10_tau=True, max_iter=100, scales=None, dtype=None,
+               seed_phase=True, nu_outs=None, scattering=None, option=0,
+               is_toa=True):
+    """fit_portrait_full_batch's work; also returns the fit's FitSetup and
+    the optimizer's NewtonResult (fit_portrait reads its moments)."""
     ff = tuple(int(bool(f)) for f in fit_flags)
-    nu_zeros.require_ported(ff)
     scattering = bool(ff[3] or ff[4]) or bool(scattering)
     log10_tau = bool(log10_tau) and scattering
     dev = data_ports.device
@@ -346,16 +363,16 @@ def fit_portrait_full_batch(data_ports, model_ft_ri, init_params, Ps, freqs,
                                        gtol=1e-11, xtol=1e-14, has_aux=True,
                                        step_mask=ff)
     x, moments, fun = res.x, res.aux, res.fun
-    nu_out_DM, nu_out_GM, nu_out_tau = nu_zeros.nu_zeros_closed_form(
-        setup, ff, moments, params=x, log10_tau=log10_tau)
+    nu_out_DM, nu_out_GM, nu_out_tau = nu_zeros.get_nu_zeros(
+        setup, ff, moments, params=x, log10_tau=log10_tau, option=option)
     if nu_outs is not None:
         nu_out_DM, nu_out_GM, nu_out_tau = (
             zero if user is None else as_t(user).expand(B)
             for user, zero in zip(nu_outs, (nu_out_DM, nu_out_GM,
                                             nu_out_tau)))
-    if ff[1]:
+    if is_toa and ff[1]:
         nu_out_GM = nu_out_DM
-    elif ff[2]:
+    elif is_toa and ff[2]:
         nu_out_DM = nu_out_GM
     params_out = _rereference(x, setup, nu_out_DM, nu_out_GM,
                               nu_out_tau, log10_tau)
@@ -370,4 +387,146 @@ def fit_portrait_full_batch(data_ports, model_ft_ri, init_params, Ps, freqs,
         nu_tau=nu_out_tau, covariance_matrix=cov, chi2=chi2,
         red_chi2=red_chi2, snr=snr, channel_snrs=channel_snrs,
         niter=res.niter, nfeval=res.nfev, return_code=res.status,
-        channel_red_chi2=ch_rchi2)
+        channel_red_chi2=ch_rchi2), setup, res
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def fit_portrait_full(data_port, model_port, init_params, P, freqs,
+                      nu_fits=(None, None, None), nu_outs=(None, None, None),
+                      errs=None, fit_flags=(1, 1, 1, 1, 1), bounds=None,
+                      log10_tau=True, option=0, sub_id=None,
+                      method="trust-ncg", is_toa=True, quiet=True,
+                      scattering=None, device=None, dtype=None):
+    """Fit (phi, DM, GM, tau, alpha) of one data portrait (nchan, nbin)
+    against one template portrait; returns (PortraitFitResult, duration
+    [s] of the solve).
+
+    A B=1 call of the batched fit with a template of its own and the
+    caller's start (seed_phase=False), so both APIs share one optimizer.
+    As in the JAX package, errs defaults to the data's per-channel noise,
+    each nu_fits entry to the mean frequency, scattering to True (tau is
+    kept in the model even when not fitted), and `bounds`, `method`,
+    `sub_id` and `quiet` are accepted for API compatibility.  device:
+    where host inputs go (default: the card; a tensor keeps its own).
+    Reference: pptoaslib.py:928-1096.
+    """
+    data = as_tensor(data_port, device, dtype)
+    dev, dt = data.device, data.dtype
+    ff = tuple(int(bool(f)) for f in fit_flags)
+    scattering = True if scattering is None else bool(scattering)
+    freqs = as_tensor(freqs, dev, dt)
+    if errs is None:
+        errs = noise_PS_profiles(data)
+    nu_fit = [freqs.mean() if nf is None else as_tensor(nf, dev, dt)
+              for nf in nu_fits]
+    mr, mi = template_spectrum(model_port)
+    start = time.time()
+    res, _, _ = _fit_batch(
+        data[None], (mr[None], mi[None]),
+        as_tensor(init_params, dev, dt)[None],
+        as_tensor(P, dev, dt).reshape(1), freqs[None],
+        as_tensor(errs, dev, dt)[None], nu_fits=torch.stack(nu_fit)[None],
+        fit_flags=ff, log10_tau=log10_tau, dtype=dt, seed_phase=False,
+        nu_outs=tuple(None if n is None else as_tensor(n, dev, dt).reshape(1)
+                      for n in nu_outs),
+        scattering=scattering, option=option, is_toa=is_toa)
+    _sync(dev)
+    duration = time.time() - start
+    return PortraitFitResult(*[None if v is None else v[0] for v in res]), \
+        duration
+
+
+def fit_portrait(data, model, init_params, P, freqs, nu_fit=None,
+                 nu_out=None, errs=None, bounds=None, id=None, quiet=True,
+                 device=None, dtype=None):
+    """Fit a phase and a DM of one data portrait against one template.
+
+    The 2-parameter API of the JAX package, with its outputs: a DataBunch
+    of phase, phase_err, DM, DM_err, scales (at the fit), scale_errs =
+    S^-1/2, nu_ref, the phase-DM covariance, chi2, red_chi2, snr,
+    duration, nfeval and return_code.  Reference: pplib.py:2102-2204.
+    """
+    data = as_tensor(data, device, dtype)
+    dev, dt = data.device, data.dtype
+    freqs = as_tensor(freqs, dev, dt)
+    if errs is None:
+        errs = noise_PS_profiles(data)
+    nu_fit = freqs.mean() if nu_fit is None else as_tensor(nu_fit, dev, dt)
+    init5 = torch.zeros(1, 5, dtype=dt, device=dev)
+    init5[0, :2] = as_tensor(init_params, dev, dt)[:2]
+    mr, mi = template_spectrum(model)
+    start = time.time()
+    res, _, newton_res = _fit_batch(
+        data[None], (mr[None], mi[None]), init5,
+        as_tensor(P, dev, dt).reshape(1), freqs[None],
+        as_tensor(errs, dev, dt)[None],
+        nu_fits=nu_fit.reshape(1, 1).expand(1, 3), fit_flags=(1, 1, 0, 0, 0),
+        log10_tau=False, dtype=dt, seed_phase=False,
+        nu_outs=(None if nu_out is None else
+                 as_tensor(nu_out, dev, dt).reshape(1), None, None),
+        scattering=False)
+    _sync(dev)
+    duration = time.time() - start
+    S = newton_res.aux["S"][0]
+    scale_errs = torch.where(S > 0.0, torch.where(S > 0.0, S,
+                                                  torch.ones_like(S)) ** -0.5,
+                             torch.zeros_like(S))
+    return DataBunch(phase=res.phi[0], phase_err=res.phi_err[0],
+                     DM=res.DM[0], DM_err=res.DM_err[0],
+                     scales=res.scales[0], scale_errs=scale_errs,
+                     nu_ref=res.nu_DM[0],
+                     covariance=res.covariance_matrix[0, 0, 1],
+                     chi2=res.chi2[0], red_chi2=res.red_chi2[0],
+                     snr=res.snr[0], duration=duration,
+                     nfeval=res.nfeval[0], return_code=res.return_code[0])
+
+
+# PortraitFitResult widths for pack/unpack, in field order; the nchan-wide
+# fields are None
+_PACK_SIZES = (5, 5, None, None, 1, 1, 1, 25, 1, 1, 1, None, 1, 1, 1,
+               None)
+_PACK_INT = {12, 13, 14}            # niter, nfeval, return_code
+
+
+def pack_result(res):
+    """A batched PortraitFitResult as ONE (B, K) tensor of the fit's
+    dtype, so a chunk's result leaves the card in one transfer; the int
+    fields are small counts, exact either way.  Inverse: unpack_result."""
+    B = res.params.shape[0]
+    dt = res.params.dtype
+    return torch.cat([leaf.reshape(B, -1).to(dt) for leaf in res], dim=1)
+
+
+def unpack_result(arr, nchan):
+    """A host PortraitFitResult (numpy fields, batch leading) from
+    pack_result's (B, K) array (a tensor anywhere, or numpy)."""
+    if torch.is_tensor(arr):
+        arr = arr.detach().cpu().numpy()
+    arr = np.asarray(arr)
+    B = arr.shape[0]
+    leaves, off = [], 0
+    for i, sz in enumerate(_PACK_SIZES):
+        n = nchan if sz is None else sz
+        leaf = arr[:, off:off + n]
+        off += n
+        if n == 1:
+            leaf = leaf[:, 0]
+        elif sz == 25:
+            leaf = leaf.reshape(B, 5, 5)
+        if i in _PACK_INT:
+            leaf = leaf.astype(np.int32)
+        leaves.append(leaf)
+    if off != arr.shape[1]:
+        raise ValueError(f"packed width {arr.shape[1]} is not that of "
+                         f"{nchan} channels ({off})")
+    return PortraitFitResult(*leaves)
+
+
+def fit_portrait_full_batch_packed(*args, **kwargs):
+    """fit_portrait_full_batch with its result packed (pack_result): one
+    device-to-host transfer per chunk.  Unpack with unpack_result."""
+    return pack_result(fit_portrait_full_batch(*args, **kwargs))

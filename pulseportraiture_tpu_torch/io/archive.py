@@ -1,15 +1,16 @@
-"""load_data: an archive file into the DataBunch record.
+"""Archives in and out: load_data, unload_new_archive, write_archive.
 
-Port of pulseportraiture_tpu/io/archive.py load_data (same DataBunch
-schema, reference pplib.py:2650-2814), on this package's own copies of
-the PSRFITS codec, the ephemeris geometry and the noise estimators.
+Port of pulseportraiture_tpu/io/archive.py (same DataBunch schema,
+reference pplib.py:2650-2814, 3033-3181), on this package's own copies
+of the PSRFITS codec, the ephemeris geometry and the noise estimators.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from pulseportraiture_tpu_torch.io.psrfits import read_psrfits
+from pulseportraiture_tpu_torch.io.psrfits import (Archive, read_psrfits,
+                                                   write_psrfits)
 from pulseportraiture_tpu_torch.io.telescopes import telescope_code
 from pulseportraiture_tpu_torch.ops.noise import get_noise_PS, get_SNR
 from pulseportraiture_tpu_torch.utils import DataBunch, get_bin_centers
@@ -162,3 +163,67 @@ def load_data(filename, state=None, dedisperse=False, dededisperse=False,
     data.add_lazy("prof_noise", lambda: float(get_noise_PS(data.prof)))
     data.add_lazy("prof_SNR", lambda: float(get_SNR(data.prof)))
     return data
+
+
+def unload_new_archive(data, arch: Archive, outfile, DM=None, dmc=0,
+                       weights=None, quiet=False):
+    """Write new amplitudes (and weights) into a copy of arch, in its
+    dispersed (dmc=0) or dedispersed state, and unload it.  Reference:
+    pplib.py:3033-3069."""
+    out = arch.copy()
+    if dmc:
+        out.dedisperse()
+    else:
+        out.dededisperse()
+    if DM is not None:
+        out.DM = float(DM)
+    out.data = np.asarray(data, dtype=np.float64)
+    if weights is not None:
+        out.weights = np.asarray(weights, dtype=np.float64)
+    write_psrfits(outfile, out, quiet=quiet)
+
+
+def write_archive(data, ephemeris, freqs, nu0=None, bw=None,
+                  outfile="pparchive.fits", tsub=1.0, start_MJD=None,
+                  weights=None, dedispersed=False, state="Stokes",
+                  telescope="GBT", quiet=False):
+    """Write a dedispersed data cube (nsub, npol, nchan, nbin) and an
+    ephemeris (a .par path or its lines) as a new PSRFITS archive, stored
+    dispersed unless dedispersed; returns the Archive.  Reference:
+    pplib.py:3071-3181 (PSRCHIVE's archive hack replaced by direct
+    PSRFITS writing)."""
+    from pulseportraiture_tpu_torch.io.mjd import MJD
+    from pulseportraiture_tpu_torch.io.par import parse_par, period_at
+
+    data = np.asarray(data, dtype=np.float64)
+    nsub, npol, nchan, nbin = data.shape
+    freqs = np.asarray(freqs, dtype=np.float64)
+    if nu0 is None:
+        nu0 = freqs.mean()
+    if bw is None:
+        bw = (freqs.max() - freqs.min()) + abs(freqs[1] - freqs[0])
+    if isinstance(ephemeris, str):
+        with open(ephemeris) as f:
+            eph_lines = f.readlines()
+    else:
+        eph_lines = list(ephemeris)
+    par = parse_par(eph_lines)
+    if start_MJD is None:
+        start_MJD = MJD(50000, 0, 0.0)
+    epochs = [start_MJD.add_seconds(tsub / 2.0 + i * tsub)
+              for i in range(nsub)]
+    Ps = np.array([period_at(par, ep.in_days()) for ep in epochs])
+    if weights is None:
+        weights = np.ones((nsub, nchan))
+    arch = Archive(
+        data=data, freqs=np.broadcast_to(freqs, (nsub, nchan)).copy(),
+        weights=np.asarray(weights, dtype=np.float64), Ps=Ps, epochs=epochs,
+        subtimes=np.full(nsub, float(tsub)), DM=par.DM,
+        dedispersed=True, nu0=float(nu0), bw=float(bw), source=par.PSR,
+        telescope=telescope, frontend="fake_rx", backend="fake_be",
+        state=state if npol == 4 else "Intensity",
+        ephemeris_lines=[ln.rstrip("\n") for ln in eph_lines])
+    if not dedispersed:
+        arch.dededisperse()
+    write_psrfits(outfile, arch, quiet=quiet)
+    return arch

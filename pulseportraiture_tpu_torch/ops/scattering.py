@@ -6,7 +6,9 @@ tau (nu/nu_tau)^alpha; its FT at harmonic k is B_k = (1 + 2 pi i k tau)^-1
 (tau in [rot]).  Torch has complex tensors on the card, so the complex
 forms run where their input lies; the split-real form is kept for
 callers that want (Br, Bi).  Host numbers (floats, numpy arrays) become
-float64 tensors.  Reference: pplib.py:4049-4095.
+float64 tensors.  scattering_kernel and add_scattering are the
+reference's time-domain forms, kept for cross-checks and simulation.
+Reference: pplib.py:1098-1144, 4049-4095.
 """
 
 from __future__ import annotations
@@ -15,6 +17,9 @@ import math
 
 import numpy as np
 import torch
+
+from pulseportraiture_tpu_torch._device import as_tensor
+from pulseportraiture_tpu_torch.config import SCATTERING_ALPHA
 
 
 def _as_tensor(v):
@@ -66,3 +71,37 @@ def scattering_portrait_FT_np(taus, nbin):
     k = np.arange(nharm)
     B = (1.0 + 2.0j * np.pi * k * taus[..., None]) ** -1
     return np.where(taus[..., None] == 0.0, np.ones_like(B), B)
+
+
+def scattering_kernel(tau, nu_ref, freqs, phases, P, alpha=SCATTERING_ALPHA,
+                      device=None):
+    """Time-domain one-sided exponential kernel (nchan, nbin), the
+    reference's legacy form, for cross-checks: tau in [s] (or [bin] with
+    phases in [bin] and P = 1).  Reference: pplib.py:1098-1119."""
+    freqs = as_tensor(freqs, device)
+    phases = as_tensor(phases, freqs.device, freqs.dtype)
+    nchan, nbin = freqs.shape[0], phases.shape[0]
+    if tau == 0.0:
+        sk = torch.zeros((nchan, nbin), dtype=freqs.dtype,
+                         device=freqs.device)
+        sk[:, 0] = 1.0
+        return sk
+    ts = (phases * P).expand(nchan, nbin)
+    taus = scattering_times(tau, alpha, freqs, nu_ref)
+    return torch.exp(-ts / taus[:, None])
+
+
+def add_scattering(port, kernel, repeat=3, device=None):
+    """port (nchan, nbin) convolved with a kernel, both tiled repeat times
+    against edge effects; the middle copy is returned.  Reference:
+    pplib.py:1121-1144."""
+    port = torch.atleast_2d(as_tensor(port, device))
+    kernel = torch.atleast_2d(as_tensor(kernel, port.device, port.dtype))
+    nbin = port.shape[-1]
+    mid = repeat // 2
+    d = port.repeat(1, repeat)
+    k = kernel.repeat(1, repeat)
+    norm_kernel = k / k.sum(dim=-1, keepdim=True)
+    out = torch.fft.irfft(torch.fft.rfft(norm_kernel, dim=-1) *
+                          torch.fft.rfft(d, dim=-1), n=nbin * repeat, dim=-1)
+    return out[:, mid * nbin:(mid + 1) * nbin]

@@ -6,7 +6,9 @@
 Every function takes tensors or Python floats and broadcasts like the
 JAX originals; batched callers pass per-item scalars with a trailing
 singleton axis.  Floor-mod is torch.remainder (jnp `%`), never fmod.
-Reference: pptoaslib.py:181-238, pplib.py:2577-2632.
+The host helpers (phasor, guess_fit_freq) take a device for host
+inputs, the card by default.  Reference: pptoaslib.py:83-238,
+pplib.py:2577-2648.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import math
 
 import torch
 
+from pulseportraiture_tpu_torch._device import as_tensor
 from pulseportraiture_tpu_torch.config import DCONST
 
 
@@ -84,3 +87,48 @@ def phase_transform(phi, DM, nu_ref1=math.inf, nu_ref2=math.inf, P=None,
     if mod:
         phi_prime = mod_pm_half(phi_prime)
     return phi_prime
+
+
+def phasor(phis, nharm, dtype=None, device=None):
+    """exp(2 pi i phis k) for harmonics k = 0..nharm-1, complex, with a
+    trailing harmonic axis appended to phis' shape.  Reference:
+    pptoaslib.py:233-238."""
+    phis = as_tensor(phis, device)
+    k = torch.arange(nharm, dtype=phis.dtype, device=phis.device)
+    ang = 2.0 * math.pi * phis[..., None] * k
+    out = torch.complex(torch.cos(ang), torch.sin(ang))
+    return out if dtype is None else out.to(dtype)
+
+
+def guess_fit_freq(freqs, SNRs=None, device=None):
+    """SNR nu^-2 weighted centre-of-mass frequency: a zero-covariance
+    frequency estimate before a fit exists.  Reference:
+    pplib.py:2618-2632."""
+    freqs = as_tensor(freqs, device)
+    nu0 = (freqs.min() + freqs.max()) * 0.5
+    SNRs = torch.ones_like(freqs) if SNRs is None else \
+        as_tensor(SNRs, freqs.device, freqs.dtype)
+    w = SNRs * freqs ** -2
+    return nu0 + torch.sum((freqs - nu0) * w) / torch.sum(w)
+
+
+def GM_from_DMc(DMc, D, a_perp):
+    """The nu^-4 delay factor GM of a discrete cloud of dispersion measure
+    DMc [pc cm^-3], at D [kpc] from the Earth, of transverse scale a_perp
+    [AU] (Lam+16).  Reference: pptoaslib.py:83-96."""
+    c = 3e10 / 3.1e21  # cm/s over cm/kpc
+    return DMc ** 2 * (c * D) / (2.0 * (a_perp * 4.8e-9) ** 2)
+
+
+def DMc_from_GM(GM, D, a_perp):
+    """The exact inverse of GM_from_DMc (the reference's version,
+    pptoaslib.py:98-110, misplaces a square on a_perp; PARITY.md)."""
+    c = 3e10 / 3.1e21
+    return (GM * 2.0 * (a_perp * 4.8e-9) ** 2 / (c * D)) ** 0.5
+
+
+def calculate_TOA(epoch, P, phi, DM=0.0, nu_ref1=math.inf, nu_ref2=math.inf):
+    """TOA (an io.mjd.MJD) = epoch + phase_transform(phi) P, with the
+    un-Doppler-corrected DM.  Reference: pplib.py:2634-2648."""
+    phi_prime = phase_transform(phi, DM, nu_ref1, nu_ref2, P, mod=False)
+    return epoch.add_seconds(float(phi_prime) * P)

@@ -2,8 +2,8 @@
 
 Port of pulseportraiture_tpu.pipelines.toas.GetTOAs:
 
-  get_TOAs             the wideband fit: (phi, DM), and with fit_scat the
-                       scattering fit (phi, DM, tau[, alpha]); no GM.  Per
+  get_TOAs             the wideband fit: (phi, DM[, GM]), and with fit_scat
+                       the scattering fit (phi, DM[, GM], tau[, alpha]).  Per
                        archive: load, prepare every subint against a
                        cached template (evaluated, base-rotated by the
                        header DM on the host in float64, and band-capped
@@ -21,6 +21,9 @@ Port of pulseportraiture_tpu.pipelines.toas.GetTOAs:
                        per-channel scattering time.
   get_psrchive_TOAs    per-channel TOAs by the six pat-style estimators
                        (fitters.arrival_time).
+  get_channels_to_zap  channels to zap from the stored fits (show_fit
+                       rebuilds one fitted subint; its plots are not
+                       ported).
 
 Templates: a FITS archive, a spline model (.spl) or a Gaussian model
 (.gmodel).  Reference: pptoas.py:150-1206.
@@ -43,10 +46,12 @@ from pulseportraiture_tpu_torch.fitters.arrival_time import (
 from pulseportraiture_tpu_torch.fitters.phase_shift import \
     fit_phase_shift_batch
 from pulseportraiture_tpu_torch.fitters.portrait import (
-    fit_portrait_full_batch, template_spectrum)
+    fit_portrait_full_batch, fit_portrait_full_batch_packed,
+    template_spectrum, unpack_result)
 from pulseportraiture_tpu_torch.io.archive import load_data
 from pulseportraiture_tpu_torch.ops.noise import get_noise_PS
-from pulseportraiture_tpu_torch.ops.rotate import rotate_portrait_np
+from pulseportraiture_tpu_torch.ops.rotate import (rotate_portrait_full,
+                                                   rotate_portrait_np)
 from pulseportraiture_tpu_torch.ops.scattering import (
     scattering_portrait_FT_np, scattering_times)
 from pulseportraiture_tpu_torch.ops.setup_dft import (band_cap_model_ft,
@@ -252,21 +257,20 @@ class GetTOAs:
         """
         if mesh is not None:
             raise NotImplementedError("multi-device sharding (mesh) is not "
-                                      "ported: ROADMAP queue 1, item 19")
-        if fit_GM:
-            raise NotImplementedError("fit_GM needs the GM nu_zeros branches:"
-                                      " ROADMAP queue 1, item 5")
+                                      "ported: ROADMAP queue 1, "
+                                      "multi-device")
         batchable_ok = nu_refs is None
         quiet = self.quiet if quiet is None else quiet
         datafiles = [datafile] if datafile is not None else self.datafiles
         addtnl_toa_flags = addtnl_toa_flags or {}
         # fit-flag assembly (pptoas.py:216-227)
         if fit_scat and not fix_alpha:
-            fit_flags = (1, int(fit_DM), 0, 1, 1)
+            fit_flags = (1, int(fit_DM), int(fit_GM), 1, 1)
         elif fit_scat:
-            fit_flags = (1, int(fit_DM), 0, 1, 0)
+            fit_flags = (1, int(fit_DM), int(fit_GM), 1, 0)
         else:
-            fit_flags = (1, int(fit_DM), 0, 0, 0)
+            fit_flags = (1, int(fit_DM), int(fit_GM), 0, 0)
+        self.bary = bary
         self.log10_tau = log10_tau = bool(log10_tau and fit_scat)
         sg = _DEFAULT_SCAT_GUESS if scat_guess is None else scat_guess
         f32 = self.dtype == torch.float32
@@ -342,10 +346,14 @@ class GetTOAs:
                 else:
                     tau_guess = tau_guess_rot if fit_scat else 0.0
                 init = np.array([0.0, 0.0, 0.0, tau_guess, sg[2]])
-                # one live channel carries no DM or scattering law
-                # (pptoas.py:475-483; the two-channel GM reduction needs
-                # fit_GM, refused above)
-                sub_flags = (1, 0, 0, 0, 0) if len(okc) == 1 else fit_flags
+                # one live channel carries no DM or scattering law, two
+                # no GM beside a DM (pptoas.py:475-483)
+                sub_flags = fit_flags
+                if len(okc) == 1:
+                    sub_flags = (1, 0, 0, 0, 0)
+                elif len(okc) == 2 and fit_flags[2]:
+                    sub_flags = (1, fit_flags[1], 0, fit_flags[3],
+                                 fit_flags[4])
                 batchable = batchable_ok and sub_flags == fit_flags
                 if batchable and i2_ok:
                     port, scale = data.raw_i2[isub], data.raw_scl[isub]
@@ -430,7 +438,7 @@ class GetTOAs:
             if items[0][1]["scale"] is not None:
                 scales = dev(np.stack([p.pop("scale") for _, p in items]),
                              torch.float32)
-            res = fit_portrait_full_batch(
+            packed = fit_portrait_full_batch_packed(
                 x, entry["dev"], dev(np.stack([p["init"] for _, p in items])),
                 dev([p["P"] for _, p in items]),
                 dev(np.stack([p["freqs"] for _, p in items])),
@@ -440,8 +448,8 @@ class GetTOAs:
                 dtype=self.dtype, seed_phase=batch,
                 nu_outs=None if batch else nu_outs_of(items),
                 scattering=None if batch else bool(fit_scat))
-            host = type(res)(*[None if v is None else v.cpu().numpy()
-                               for v in res])
+            # one transfer per chunk: the result packed on the device
+            host = unpack_result(packed, x.shape[1])
             dur = (time.time() - t0) / len(items)
             timing["fit_s"] += time.time() - t0
             for i, (iarch, p) in enumerate(items):
@@ -482,7 +490,7 @@ class GetTOAs:
                     return
                 fit_fallback(next_assemble, job)
                 self._assemble_archive(job, results, next_assemble, bary,
-                                       fit_DM, fit_scat, fix_alpha,
+                                       fit_DM, fit_GM, fit_scat, fix_alpha,
                                        print_phase, print_flux,
                                        print_parangle, addtnl_toa_flags,
                                        timing, nu_refs is not None)
@@ -517,11 +525,13 @@ class GetTOAs:
                   f"{timing['wall_s']:.2f} s; Med. TOA error is "
                   f"{med_err:.3f} us")
 
-    def _assemble_archive(self, job, results, iarch, bary, fit_DM,
+    def _assemble_archive(self, job, results, iarch, bary, fit_DM, fit_GM,
                           fit_scat, fix_alpha, print_phase, print_flux,
                           print_parangle, addtnl_toa_flags, timing,
                           user_refs=False):
-        """TOAs and per-archive records from the fitted subints."""
+        """TOAs and per-archive records from the fitted subints.  A
+        subint whose fitted phase, DM or their errors are not finite is
+        left out with a message, as a subint that cannot be fitted is."""
         t0 = time.time()
         df, data, DM0_arch = job["df"], job["data"], job["DM0_arch"]
         nbin = data.nbin
@@ -533,6 +543,13 @@ class GetTOAs:
             entry = prep["entry"]
             res, duration = results[(iarch, isub)]
             arch_duration += duration
+            fitted = (res.phi, res.DM, res.phi_err, res.DM_err)
+            if not np.all(np.isfinite(np.asarray(fitted, np.float64))):
+                print(f"Skipping {df} subint {isub}: the fit is not finite "
+                      f"(phi {float(res.phi)}, DM {float(res.DM)}, errors "
+                      f"{float(res.phi_err)}, {float(res.DM_err)}; return "
+                      f"code {int(res.return_code)})")
+                continue
             # restore the base dispersion (host f64): the fit solved dDM
             # around DM_base against the template rotated at P_model and
             # anchored at nu_anchor
@@ -591,6 +608,9 @@ class GetTOAs:
                 flags["phi_DM_cov"] = float(
                     np.asarray(res.covariance_matrix)[0, 1])
             flags["gof"] = float(res.red_chi2)
+            if fit_GM:
+                flags["gm"] = GM_bary
+                flags["gm_err"] = float(res.GM_err)
             if fit_scat:
                 # topocentric -> barycentric via the Doppler factor
                 # (pptoas.py:615-627)
@@ -677,6 +697,110 @@ class GetTOAs:
             getattr(self, name).append(np.asarray(v) if name in as_array
                                        else v)
         timing["assemble_s"] += time.time() - t0
+
+    def show_fit(self, datafile=None, isub=0, rotate=True, savefig=False,
+                 show=False, return_fit=True, quiet=None):
+        """One fitted subint beside its fitted model: (port, scaled_model,
+        phases, freqs, errs), host numpy.  Reloads the archive, rebuilds
+        the scattered and scaled model at the subint's frequencies and
+        rotates the data by the fitted (phi, DM, GM) on this GetTOAs'
+        device.  The plots (show, savefig) are not ported.  Reference:
+        pptoas.py:1287-1419."""
+        if show or savefig:
+            raise NotImplementedError("plotting is not ported: ROADMAP "
+                                      "queue 1, viz and profiling")
+        datafile = datafile or self.order[0]
+        iarch = self.order.index(datafile)
+        ii = list(self.ok_isubs[iarch]).index(isub)
+        data = load_data(datafile, dedisperse=False, dededisperse=True,
+                         pscrunch=True, rm_baseline=True, quiet=True)
+        P = data.Ps[isub]
+        freqs = data.freqs[isub]
+        port = np.array(data.subints[isub, 0], dtype=np.float64)
+        model = self.model_source.eval(data.phases, freqs, P)
+        # stored DMs are barycentric when get_TOAs ran with bary
+        df_dop = data.doppler_factors[isub] if getattr(self, "bary",
+                                                       True) else 1.0
+        DM = self.DMs[iarch][ii] / df_dop
+        GM = self.GMs[iarch][ii] / df_dop ** 3
+        nu_DM, nu_GM, nu_tau = self.nu_refs[iarch][ii]
+        tau = self.taus[iarch][ii]
+        tau_lin = 10.0 ** tau if getattr(self, "log10_tau", False) else tau
+        taus = scattering_times(tau_lin, self.alphas[iarch][ii], freqs,
+                                nu_tau)
+        scat_model = np.fft.irfft(
+            scattering_portrait_FT_np(taus, data.nbin) *
+            np.fft.rfft(model, axis=-1), n=data.nbin, axis=-1)
+        scaled_model = scat_model * np.asarray(self.scales[iarch][ii])[:, None]
+        if rotate:
+            port = rotate_portrait_full(
+                port, self.phis[iarch][ii], DM, GM, freqs, nu_DM, nu_GM,
+                P=P, device=self.device).cpu().numpy()
+        errs = np.where(data.weights[isub] > 0, data.noise_stds[isub, 0],
+                        0.0)
+        if return_fit:
+            return port, scaled_model, data.phases, freqs, errs
+        return None
+
+    show_subint = show_fit
+
+    def get_channels_to_zap(self, SNR_threshold=8.0, rchi2_threshold=1.3,
+                            iterate=True, show=False):
+        """Channels to zap per archive and subint, from the stored fits: a
+        reduced chi2 above rchi2_threshold (or NaN), or an S/N below
+        (SNR_threshold^2 / nchan_live)^1/2, iterated as channels drop.
+        The fast path reads the per-channel reduced chi2 that the fit
+        computed on the device (each chunk's result left the card in one
+        transfer); a subint without it goes through show_fit and the
+        time domain.  Fills and returns self.zap_channels.  Reference:
+        pptoas.py:1208-1285."""
+        if show:
+            raise NotImplementedError("plotting is not ported: ROADMAP "
+                                      "queue 1, viz and profiling")
+        self.zap_channels = []
+        self.channel_red_chi2s = []
+        for iarch, df in enumerate(self.order):
+            arch_zaps, arch_rchi2s = [], []
+            stored = self.fit_channel_red_chi2s[iarch] \
+                if iarch < len(self.fit_channel_red_chi2s) else []
+            for ii, isub in enumerate(self.ok_isubs[iarch]):
+                rc_all = stored[ii] if ii < len(stored) else None
+                if rc_all is not None:
+                    rc_all = np.asarray(rc_all, dtype=np.float64)
+                    okc = np.where(rc_all > 0.0)[0]
+                else:
+                    port, scaled_model, _, _, errs = self.show_fit(
+                        datafile=df, isub=isub, rotate=True, show=False,
+                        return_fit=True, quiet=True)
+                    okc = np.where(errs > 0)[0]
+                    rc_all = np.zeros(len(errs))
+                    rc_all[okc] = np.sum(
+                        ((port[okc] - scaled_model[okc]) /
+                         errs[okc, None]) ** 2, axis=-1) / \
+                        (port.shape[1] - 2)
+                snr = np.asarray(self.channel_snrs[iarch][ii])[okc]
+                rc = rc_all[okc]
+                low = np.zeros(len(okc), bool)
+                if SNR_threshold:
+                    low = snr < (SNR_threshold ** 2 / max(len(okc), 1)) ** 0.5
+                bad = (rc > rchi2_threshold) | np.isnan(rc) | low
+                if iterate and SNR_threshold and bad.any():
+                    # the threshold rises as channels drop
+                    # (pptoas.py:1260-1276)
+                    while len(okc) > bad.sum():
+                        thresh = (SNR_threshold ** 2 /
+                                  (len(okc) - bad.sum())) ** 0.5
+                        new = ~bad & (snr < thresh)
+                        if not new.any():
+                            break
+                        bad |= new
+                rchi2s = rc.tolist()
+                bad = [int(c) for c in okc[bad]]
+                arch_rchi2s.append(rchi2s)
+                arch_zaps.append(bad)
+            self.zap_channels.append(arch_zaps)
+            self.channel_red_chi2s.append(arch_rchi2s)
+        return self.zap_channels
 
     def _load_dispersed(self, df, tscrunch, quiet):
         """An archive in its dispersed state, as per-channel TOAs need it

@@ -1,4 +1,5 @@
-"""Small shared utilities: the DataBunch record, bin centers, weighted mean.
+"""Small shared utilities: the DataBunch record, bin centers, weighted
+mean and RMS, threshold crossings.
 
 This package's own copy of the helpers it needs from
 pulseportraiture_tpu/utils.py (same behaviour; reference pplib.py).
@@ -65,3 +66,24 @@ def weighted_mean(data, errs=1.0):
     w = errs[ok] ** -2.0
     mean = (data[ok] * w).sum() / w.sum()
     return mean, w.sum() ** -0.5
+
+
+def count_crossings(x, x0):
+    """Number of crossings of the 1-D array x across the threshold x0.
+
+    Reference: pplib.py:686-694.
+    """
+    x = np.asarray(x)
+    return int((np.diff(np.sign(x - x0)) != 0).sum() - ((x - x0) == 0).sum())
+
+
+def get_WRMS(data, errs=1.0):
+    """Weighted root-mean-square value.  Reference: pplib.py:711-725."""
+    data = np.asarray(data, dtype=np.float64)
+    if np.isscalar(errs) or getattr(errs, "ndim", 0) == 0:
+        errs = np.ones(len(data))
+    errs = np.asarray(errs, dtype=np.float64)
+    ok = errs > 0.0
+    w_mean = weighted_mean(data, errs)[0]
+    w = errs[ok] ** -2.0
+    return (((data[ok] - w_mean) ** 2.0 * w).sum() / w.sum()) ** 0.5

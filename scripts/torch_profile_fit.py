@@ -7,6 +7,8 @@ Profiles (torch.profiler, CPU + CUDA activities) one warm batch of the
 port's fit_portrait_full_batch at 4096 channels x 2048 bins, float32,
 template spectrum resident on the card, for:
   * the (phi, DM) fit, B=64, on bench.py's data recipe (chip_smoke.py);
+  * the (phi, DM, GM) fit, B=64, on the same recipe with a GM injected
+    (chip_smoke.gm_recipe);
   * the scattering fit (phi, DM, tau, alpha), B=32, on
     scripts/tpu_scaling.py's --scat recipe (chip_smoke.py);
 each with the band-capped and the full-band template spectrum; and for
@@ -17,7 +19,8 @@ channels as 4096 rows):
   * the per-channel scattering fits of get_narrowband_TOAs(fit_scat=True):
     4096 single-channel (phi, tau) items in one fit_portrait_full_batch,
     band-capped template, started from the FFTFIT phases.
-The data recipes are chip_smoke.py's own (phidm_recipe, scat_recipe).
+The data recipes are chip_smoke.py's own (phidm_recipe, gm_recipe,
+scat_recipe).
 Prints, per case: the batch's unprofiled wall ms (host clock to a
 synchronize, median of 3) and its profiled wall ms (the profiler slows
 the host), device busy ms (the union of kernel intervals), the setup
@@ -133,6 +136,18 @@ def main():
             torch.full((B, N), cs.NOISE, **t32)))
         out[f"phi_dm/{name}/B{B}"] = rec
         print(f"phi_dm {name} B={B}: {json.dumps(rec)}", flush=True)
+    del data
+
+    # (phi, DM, GM), B=64: chip_smoke.py's gm_recipe
+    data, freqs, model, _, _, _, _ = cs.gm_recipe(dev, B)
+    for name, mft in cs.template_routes(model).items():
+        mft = on_card(mft)
+        rec = profile(lambda: fit_portrait_full_batch(
+            data, mft, torch.zeros((B, 5), **t32),
+            torch.full((B,), P, **t32), freqs.float(),
+            torch.full((B, N), cs.NOISE, **t32), fit_flags=(1, 1, 1, 0, 0)))
+        out[f"phi_dm_gm/{name}/B{B}"] = rec
+        print(f"phi_dm_gm {name} B={B}: {json.dumps(rec)}", flush=True)
     del data
 
     # the scattering fit, B=32: scripts/tpu_scaling.py --scat

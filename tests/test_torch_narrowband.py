@@ -303,8 +303,13 @@ def test_cli_narrowband_psrchive_and_nu_ref(ws, capsys):
     assert pptoas.main(base + ["-o", prn, "--princeton"]) == 0
     with open(prn) as f:
         assert len(f.read().splitlines()) == 2
-    with pytest.raises(NotImplementedError, match="GM"):
-        pptoas.main(base + ["--fit_dt4"])
+    # --fit_dt4 (GM) runs now: its lines carry the gm flags
+    gm = str(ws["path"] / "gm.tim")
+    assert pptoas.main(base + ["-o", gm, "--fit_dt4"]) == 0
+    with open(gm) as f:
+        lines = f.read().splitlines()
+    assert len(lines) == 2 and all(" -gm " in ln and " -gm_err " in ln
+                                   for ln in lines)
 
 
 def test_narrowband_paths_never_import_jax(ws):

@@ -224,15 +224,26 @@ def test_cuda_device_without_a_card_raises(ws):
 
 
 def test_unported_options_raise(ws):
-    """What the port still refuses: GM (its nu_zeros branches) and mesh
-    sharding, with or without fit_scat, each naming its ROADMAP item.
-    User output references and .gmodel templates no longer raise."""
+    """What the port still refuses: mesh sharding, naming its ROADMAP
+    item.  GM, with or without fit_scat, no longer raises: its TOAs match
+    the JAX package's (within 1 ns, DM and GM within 1e-6 sigma), as do
+    user output references and .gmodel templates."""
     gt = toas.GetTOAs(ws["files"][:1], ws["fits"], device="cpu",
                       dtype=torch.float64, quiet=True)
-    for kw in (dict(fit_GM=True), dict(fit_GM=True, fit_scat=True),
-               dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            gt.get_TOAs(quiet=True, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gt.get_TOAs(quiet=True, mesh=object())
+    for kw in (dict(fit_GM=True), dict(fit_GM=True, fit_scat=True)):
+        want = JGetTOAs(ws["files"][:1], ws["fits"], quiet=True)
+        want.get_TOAs(quiet=True, **kw)
+        gt.TOA_list = []
+        gt.get_TOAs(quiet=True, **kw)
+        assert len(gt.TOA_list) == len(want.TOA_list) == 2
+        for a, b in zip(gt.TOA_list, want.TOA_list):
+            assert abs(mjd_diff_s(a.MJD, b.MJD)) < 1e-9
+            assert abs(a.DM - b.DM) <= 1e-6 * b.DM_error
+            assert abs(a.flags["gm"] - b.flags["gm"]) <= \
+                1e-6 * b.flags["gm_err"]
+    gt.TOA_list = []
     gt.get_TOAs(quiet=True, nu_refs=(1400.0, 1400.0, 1400.0))
     assert [t.frequency for t in gt.TOA_list] == [1400.0, 1400.0]
     gmodel = str(ws["path"] / "test.gmodel")

@@ -229,8 +229,8 @@ def test_scattering_nu_zeros_match_jax(fit_flags, log10_tau):
                                             scattering=True)
     want = jnz.get_nu_zeros(jnp.asarray(p), js, fit_flags=fit_flags,
                             log10_tau=log10_tau, moments=jm)
-    got = nu_zeros.nu_zeros_closed_form(ts, fit_flags, m, params=t64(p),
-                                        log10_tau=log10_tau)
+    got = nu_zeros.get_nu_zeros(ts, fit_flags, m, params=t64(p),
+                                log10_tau=log10_tau)
     for a, b in zip(got, want):
         assert rel_err(a, b) < 1e-9
     solved = {(0, 0, 0, 1, 1): (2,), (1, 1, 0, 1, 0): (0,)}.get(
