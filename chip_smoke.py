@@ -79,7 +79,28 @@ parallel), then:
      interference; get_channels_to_zap after the card run returns them,
      as its show_fit path and the float64 CPU run do; the model-free
      zap_archive writes an archive whose weights zero them, and get_TOAs
-     runs on it.
+     runs on it;
+ 16. the template workflow (phase_template_build), first at 512 x 2048
+     on a profile that evolves across the band: the chain (align ->
+     ppspline, ppgauss -> get_TOAs) on the card against the float64 CPU
+     port: Gaussian parameters within 0.01 of their errors, through the
+     whole chain and built from one aligned portrait; the same nonempty
+     set of spline eigenprofiles, knots within 1e-6 MHz, the spline
+     coefficients, both models and the aligned portrait within 1e-3 of
+     the noise sigma; the TOAs and DMs each chain's templates give within
+     0.01 sigma.  Then, the builders warm, at 4096 x 2048: align (what
+     ppalign -I -T runs) of two int16 archives x 8 coherent subints, each
+     archive with its own phase offset and dDM, which align's fits must
+     recover within 5 of their errors; ppspline (normalize 'prof',
+     smoothed PCA + spline) and ppgauss (2 components, niter 1) on the
+     average, get_TOAs with each template: 16 TOAs with gof < 2 and the
+     relative dDM structure within 5 sigma; the Gaussian model against
+     bench_template's truth (separation, widths, amplitude ratio,
+     amplitude index) within 5 of its errors; align and ppgauss must
+     launch the setup, phase-moments and merged kernels.  The walls
+     (PCA / smoothing / spline fit, bootstrap / LM / check_convergence),
+     the LM's Jacobians and rejected steps and its ms per Jacobian are
+     printed, at 512 both at the builders' first use and again.
 ptxas's registers and spills are printed for every kernel; a spill in the
 setup FFT or the scattering kernel fails the run.  Launch counts are
 reset before each pipeline run (the main paths) and
@@ -170,14 +191,16 @@ def cuda_ms(fn, reps=10, warm=2):
     return start.elapsed_time(end) / reps
 
 
-def bench_template(freqs, nbin=NBIN):
-    """bench.py's two-component template (nchan, nbin), float32."""
+def bench_template(freqs, nbin=NBIN, index2=-1.5):
+    """bench.py's two-component template (nchan, nbin), float32.  index2:
+    the second component's spectral index (the main one's is -1.5; any
+    other value makes the profile's shape evolve across the band)."""
     import numpy as np
     x = (np.arange(nbin) + 0.5) / nbin
-    prof = np.exp(-0.5 * ((x - 0.4) / 0.02) ** 2) + \
-        0.4 * np.exp(-0.5 * ((x - 0.47) / 0.01) ** 2)
-    return (prof[None, :] * (freqs[:, None] / 1500.0) ** -1.5).astype(
-        np.float32)
+    r = freqs[:, None] / 1500.0
+    prof = np.exp(-0.5 * ((x - 0.4) / 0.02) ** 2)[None, :] + \
+        0.4 * np.exp(-0.5 * ((x - 0.47) / 0.01) ** 2) * r ** (index2 + 1.5)
+    return (prof * r ** -1.5).astype(np.float32)
 
 
 def shifted_data(mft, shifts, gen, noise, dev, nbin=NBIN):
@@ -817,7 +840,8 @@ def phase_scat_fit(dev):
 
 
 def write_archives(rng, nsub=8, t_scat=0.0, tag="epoch", narch=2,
-                   rfi_chans=()):
+                   rfi_chans=(), nchan=NCHAN, jitter=0.2,
+                   dDMs=(3e-4, -2e-4), offsets=(0.0, 0.0), index2=-1.5):
     """narch (at most two) int16 archives x nsub subints (scattered by
     t_scat [s] at 1500 MHz, index -4, when t_scat > 0) + a float32
     noiseless template.  rfi_chans get 5x the noise, white, and as much
@@ -825,7 +849,11 @@ def write_archives(rng, nsub=8, t_scat=0.0, tag="epoch", narch=2,
     power-spectrum noise estimate does not see).  Returns (files, dDMs,
     template file, the injected per-channel phases [rot] of every
     subint, (narch, nsub, nchan): the data are the template rotated
-    EARLIER by that much)."""
+    EARLIER by that much).  Each subint's phase is its archive's offset
+    [rot] plus a draw from U(-jitter, jitter) rot (0: coherent subints,
+    as folding with a good ephemeris leaves them); archive i is
+    dispersed by DM + dDMs[i].  index2: bench_template's second
+    component's spectral index."""
     import numpy as np
 
     from pulseportraiture_tpu_torch.config import DCONST
@@ -836,9 +864,9 @@ def write_archives(rng, nsub=8, t_scat=0.0, tag="epoch", narch=2,
 
     os.makedirs(WORK, exist_ok=True)
     nu0, bw, DM = 1500.0, 800.0, 30.0
-    cw = bw / NCHAN
-    freqs = np.linspace(nu0 - bw / 2 + cw / 2, nu0 + bw / 2 - cw / 2, NCHAN)
-    model = bench_template(freqs).astype(np.float64)
+    cw = bw / nchan
+    freqs = np.linspace(nu0 - bw / 2 + cw / 2, nu0 + bw / 2 - cw / 2, nchan)
+    model = bench_template(freqs, index2=index2).astype(np.float64)
     mft = np.fft.rfft(model, axis=-1)
     if t_scat:
         mft_d = mft * scattering_portrait_FT_np(
@@ -851,8 +879,8 @@ def write_archives(rng, nsub=8, t_scat=0.0, tag="epoch", narch=2,
     def arch(data, DM_, dDM_epoch):
         n = data.shape[0]
         return Archive(
-            data=data, freqs=np.broadcast_to(freqs, (n, NCHAN)).copy(),
-            weights=np.ones((n, NCHAN)), Ps=np.full(n, P),
+            data=data, freqs=np.broadcast_to(freqs, (n, nchan)).copy(),
+            weights=np.ones((n, nchan)), Ps=np.full(n, P),
             epochs=[MJD(57000 + 30 * dDM_epoch).add_seconds(30.0 + 60 * i)
                     for i in range(n)],
             subtimes=np.full(n, 60.0), DM=DM_, dedispersed=False,
@@ -861,12 +889,12 @@ def write_archives(rng, nsub=8, t_scat=0.0, tag="epoch", narch=2,
 
     tmpl = os.path.join(WORK, "template.fits")
     write_psrfits(tmpl, arch(model[None, None], 0.0, 0), dtype="f4")
-    files, dDMs = [], [3e-4, -2e-4][:narch]
-    injected = np.empty((narch, nsub, NCHAN))
+    files, dDMs = [], list(dDMs[:narch])
+    injected = np.empty((narch, nsub, nchan))
     for ia, dDM in enumerate(dDMs):
-        data = np.empty((nsub, 1, NCHAN, NBIN))
+        data = np.empty((nsub, 1, nchan, NBIN))
         for i in range(nsub):
-            phase = rng.uniform(-0.2, 0.2)
+            phase = offsets[ia] + rng.uniform(-jitter, jitter)
             phis = -phase - DCONST * (DM + dDM) / P * inv2
             injected[ia, i] = phis
             theta = np.mod(phis[:, None] * k, 1.0) * (2.0 * np.pi)
@@ -1563,6 +1591,281 @@ def phase_zap(seed=42):
                           model_free=sorted({c for z in free for c in z}))
 
 
+TB_FWHM = 2.0 * math.sqrt(2.0 * math.log(2.0))
+# bench_template's truth: locs 0.4 / 0.47, sigmas 0.02 / 0.01 rot,
+# amplitudes 1 / 0.4 at 1500 MHz, both with index -1.5
+TB_TRUTH = dict(separation=0.07, wid_main=0.02 * TB_FWHM,
+                wid_second=0.01 * TB_FWHM, amp_ratio=0.4, amp_index=-1.5)
+
+
+def gauss_truth_z(params, errs):
+    """(value, error) of each bench_template truth figure from a
+    two-component .gmodel fit (layout [dc, tau, (loc, m_loc, wid, m_wid,
+    amp, m_amp) x 2]), the main component the brighter; and the z of
+    each against TB_TRUTH."""
+    comps = [(params[2 + 6 * i: 8 + 6 * i], errs[2 + 6 * i: 8 + 6 * i])
+             for i in range(2)]
+    (a, ea), (b, eb) = sorted(comps, key=lambda c: -c[0][4])
+    ratio = b[4] / a[4]
+    got = dict(
+        separation=((b[0] - a[0] + 0.5) % 1.0 - 0.5, math.hypot(ea[0], eb[0])),
+        wid_main=(a[2], ea[2]), wid_second=(b[2], eb[2]),
+        amp_ratio=(ratio, abs(ratio) * math.hypot(ea[4] / a[4],
+                                                  eb[4] / b[4])),
+        amp_index_main=(a[5], ea[5]), amp_index_second=(b[5], eb[5]))
+    z = {}
+    for key, (v, e) in got.items():
+        want = TB_TRUTH["amp_index" if key.startswith("amp_index") else key]
+        z[key] = (v - want) / e if e > 0 else math.inf
+    return got, z
+
+
+def check_template_toas(gt, dDMs, name, ntoa):
+    """TOA count, gof < 2 on every TOA, and the relative dDM structure
+    ((rec - mean) - (inj - mean)) within 5 sigma: a template built from
+    the data absorbs their mean DM."""
+    import numpy as np
+    rec = np.asarray(gt.DeltaDM_means)
+    err = np.asarray(gt.DeltaDM_errs)
+    inj = np.asarray(dDMs)
+    rel = (rec - rec.mean()) - (inj - inj.mean())
+    gofs = [t.flags["gof"] for t in gt.TOA_list]
+    log(f"template build: {name}: {len(gt.TOA_list)} TOAs, DeltaDM "
+        f"{rec.tolist()} +- {err.tolist()}, injected {dDMs}, relative "
+        f"structure {(rel / err).tolist()} sigma; gof max {max(gofs):.4f}")
+    if len(gt.TOA_list) != ntoa:
+        raise AssertionError(f"{name}: {len(gt.TOA_list)} TOAs, expected "
+                             f"{ntoa}")
+    if np.any(np.abs(rel) > 5 * err):
+        raise AssertionError(f"{name}: relative dDM structure not within 5 "
+                             "sigma of the injection")
+    if max(gofs) >= 2.0:
+        raise AssertionError(f"{name}: a TOA with gof {max(gofs)} >= 2")
+    return dict(toas=len(gt.TOA_list), rel_dDM_sigma=(rel / err).tolist(),
+                max_gof=max(gofs))
+
+
+TB_OFFSETS, TB_DDMS = (0.1, -0.15), (3e-4, -5e-3)   # [rot], [pc cm^-3]
+
+
+def check_align_fits(fits, dDMs, offsets, name):
+    """align's fit of each tscrunched archive against the noiseless
+    template: its DM the injected dDM, and its phase, moved to 1500 MHz
+    with the header DM (30) it was rotated by first, the injected
+    offset, each within 5 of its errors.  Returns the z values."""
+    from pulseportraiture_tpu_torch.config import DCONST
+    z = []
+    for f, dDM, off in zip(fits, dDMs, offsets):
+        b = DCONST / P * (1500.0 ** -2 - f["nu_fit"] ** -2)
+        phi = f["phi"] + (30.0 + f["DM"]) * b
+        err = math.hypot(f["phi_err"], abs(b) * f["DM_err"])
+        z.append(dict(phi=((phi - off + 0.5) % 1.0 - 0.5) / err,
+                      DM=(f["DM"] - dDM) / f["DM_err"]))
+    log(f"template build: {name}: align's fits against the injection "
+        f"(offsets {list(offsets)} rot, dDMs {list(dDMs)}): z {z}")
+    if len(fits) != len(dDMs) or \
+            max(abs(v) for d in z for v in d.values()) > 5:
+        raise AssertionError(f"{name}: align did not recover each "
+                             f"archive's phase offset and dDM: {z}")
+    return z
+
+
+def build_templates(files, init, device, tag, aligned=None):
+    """align (what ppalign -d files -I init -T --niter 1 runs) ->
+    (ppspline, ppgauss) -> get_TOAs with each template, on device
+    (float32 fits on the card, float64 on the CPU); the launch counts of
+    each builder path (reset just before, read just after), its walls,
+    align's fits and what the comparisons need.  aligned: an aligned
+    portrait to build from instead of aligning."""
+    import torch
+
+    from pulseportraiture_tpu_torch.io.psrfits import read_psrfits
+    from pulseportraiture_tpu_torch.pipelines.align import align_archives
+    from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
+    from pulseportraiture_tpu_torch.portrait import DataPortrait
+
+    spl = os.path.join(WORK, f"{tag}.spl")
+    gmodel = os.path.join(WORK, f"{tag}.gmodel")
+    launches, walls, fits = {}, {}, None
+    if aligned is None:
+        aligned = os.path.join(WORK, f"{tag}_aligned.fits")
+        reset_launches()
+        t0 = time.perf_counter()
+        _, fits = align_archives(datafiles=files, initial_guess=init,
+                                 tscrunch=True, outfile=aligned, niter=1,
+                                 quiet=True, device=device, return_fits=True)
+        walls["align_s"] = time.perf_counter() - t0
+        launches["align"] = read_launches()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    dp = DataPortrait(aligned, quiet=True, device=device)
+    dp.normalize_portrait("prof")
+    dp.make_spline_model(max_ncomp=10, smooth=True, quiet=True)
+    dp.write_model(spl, quiet=True)
+    walls["ppspline_s"] = time.perf_counter() - t0
+    launches["ppspline"] = read_launches()
+    walls["ppspline_parts"] = dict(dp.timing)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    dg = DataPortrait(aligned, quiet=True, device=device)
+    res = dg.make_gaussian_model(ngauss=2, niter=1, outfile=gmodel,
+                                 quiet=True)
+    walls["ppgauss_s"] = time.perf_counter() - t0
+    launches["ppgauss"] = read_launches()
+    walls["ppgauss_parts"] = dict(dg.timing)
+    # a rejected step costs one residual evaluation, an accepted one a
+    # Jacobian: the LM's wall over its Jacobians
+    walls["lm_ms_per_jacobian"] = \
+        1e3 * dg.timing["lm_s"] / max(dg.timing["lm_jacobians"], 1)
+
+    dtype = torch.float32 if device == "cuda" else torch.float64
+    toas = {}
+    for name, tmpl in (("spl", spl), ("gmodel", gmodel)):
+        gt = GetTOAs(files, tmpl, device=device, dtype=dtype, quiet=True)
+        t0 = time.perf_counter()
+        gt.get_TOAs(quiet=True)
+        walls[f"get_TOAs_{name}_s"] = time.perf_counter() - t0
+        toas[name] = gt
+    return dict(launches=launches, walls=walls, fits=fits,
+                aligned_file=aligned,
+                aligned=read_psrfits(aligned).data[0, 0], spline=dp,
+                gauss=dg, gauss_res=res, toas=toas)
+
+
+def spline_diff(a, b, sigma):
+    """Largest differences of two spline builds (a against b): their
+    knots [MHz], their coefficients with each eigenprofile's sign taken
+    from b's (eigh's signs are the solver's), and their model portraits,
+    the last two in units of sigma.  None where the knots differ in
+    number."""
+    import numpy as np
+    ta, ca, _ = a.tck
+    tb, cb, _ = b.tck
+    if len(ta) != len(tb) or np.shape(ca) != np.shape(cb):
+        return None
+    ea = a.smooth_eigvec[:, a.ieig]
+    eb = b.smooth_eigvec[:, b.ieig]
+    sign = np.sign(np.sum(ea * eb, axis=0))[:, None]
+    return dict(knots_MHz=float(np.max(np.abs(np.asarray(ta) -
+                                              np.asarray(tb)))),
+                coefs_sigma=float(np.max(np.abs(sign * np.asarray(ca) -
+                                                np.asarray(cb))) / sigma),
+                model_sigma=float(np.max(np.abs(a.model - b.model)) /
+                                  sigma))
+
+
+def phase_template_build(seed=7):
+    """The template-building workflow: first at 512 x 2048 (a profile
+    that evolves across the band) the chain on the card against the
+    float64 CPU port, which is also the builders' first use in the
+    process; then, warm, at 4096 x 2048 on the card: align of two int16
+    archives x 8 coherent subints (write_archives, jitter 0, each archive
+    with its own phase offset and dDM), ppspline and ppgauss on the
+    aligned portrait, get_TOAs with each template.  Returns the launch
+    counts of the three builder paths (at 4096) and the figures."""
+    import numpy as np
+
+    from pulseportraiture_tpu_torch.ops.noise import get_noise_PS
+
+    rec = {}
+    files5, dDMs5, init5, _ = write_archives(
+        np.random.default_rng(seed + 1), tag="tb512", nchan=512,
+        jitter=0.0, dDMs=TB_DDMS, offsets=TB_OFFSETS, index2=0.5)
+    card = build_templates(files5, init5, "cuda", "tb512c")
+    t0 = time.perf_counter()
+    cpu = build_templates(files5, init5, "cpu", "tb512h")
+    cpu_s = time.perf_counter() - t0
+    same = build_templates(files5, init5, "cuda", "tb512s",
+                           aligned=cpu["aligned_file"])
+    for name, r in (("512 card", card), ("512 CPU", cpu)):
+        check_align_fits(r["fits"], dDMs5, TB_OFFSETS, name)
+
+    def param_z(a, b):
+        e = np.asarray(b["gauss_res"].fit_errs)
+        d = np.abs(a["gauss_res"].fitted_params -
+                   b["gauss_res"].fitted_params)
+        return float(np.max(d[e > 0] / e[e > 0]))
+
+    dz_chain, dz_same = param_z(card, cpu), param_z(same, cpu)
+    ieigs = [r["spline"].ieig.tolist() for r in (card, same, cpu)]
+    sig_al = np.median(get_noise_PS(cpu["aligned"], chans=True))
+    sig_sp = np.median(cpu["spline"].noise_stds[0, 0])
+    sig_g = np.median(cpu["gauss"].noise_stds[0, 0])
+    d_al = float(np.max(np.abs(card["aligned"] - cpu["aligned"])) / sig_al)
+    d_sp = {name: spline_diff(r["spline"], cpu["spline"], sig_sp)
+            for name, r in (("chain", card), ("same", same))}
+    d_g = float(np.max(np.abs(card["gauss"].model - cpu["gauss"].model)) /
+                sig_g)
+    zt = {name: toa_sigmas(card["toas"][name].TOA_list,
+                           cpu["toas"][name].TOA_list)[:2]
+          for name in ("spl", "gmodel")}
+    log(f"template build 512: card vs float64 CPU ({cpu_s:.1f} s on the "
+        f"CPU): Gaussian parameters {dz_chain:.3e} of their errors through "
+        f"the whole chain, {dz_same:.3e} built from one aligned portrait; "
+        f"ieig (chain, same input, CPU) {ieigs}; max |d aligned| "
+        f"{d_al:.3e} sigma; spline (knots MHz, coefficients and model in "
+        f"sigma) {d_sp}; |d Gaussian model| {d_g:.3e} sigma; TOAs, DMs "
+        f"(sigma) {zt}")
+    log(f"template build 512: card walls, first use {json.dumps(card['walls'])}"
+        f"; again on the CPU's aligned portrait {json.dumps(same['walls'])}")
+    # limits: Gaussian parameters 0.01 of their errors, TOAs and DMs 0.01
+    # sigma (PERF.md section 2); the same eigenprofiles, and knots within
+    # 1e-6 MHz; the aligned portrait, the spline coefficients and both
+    # models within 1e-3 of the noise sigma
+    bad = [what for what, ok in (
+        ("Gaussian parameters", max(dz_chain, dz_same) <= 1e-2),
+        ("ieig", len(ieigs[2]) >= 1 and ieigs[0] == ieigs[2] == ieigs[1]),
+        ("spline knots and coefficients", all(
+            v is not None and v["knots_MHz"] <= 1e-6 and
+            max(v["coefs_sigma"], v["model_sigma"]) <= 1e-3
+            for v in d_sp.values())),
+        ("aligned portrait", d_al <= 1e-3), ("Gaussian model", d_g <= 1e-3),
+        ("TOAs and DMs", max(max(v) for v in zt.values()) <= 1e-2)) if not ok]
+    if bad:
+        raise AssertionError(f"template build 512: the card and the float64 "
+                             f"CPU port disagree: {bad}")
+    rec["vs_f64_512"] = dict(gauss_params_over_err_chain=dz_chain,
+                             gauss_params_over_err=dz_same, ieig=ieigs[2],
+                             aligned_sigma=d_al, spline=d_sp,
+                             gauss_model_sigma=d_g, toa_dm_sigma=zt,
+                             cpu_s=cpu_s, walls_first_use=card["walls"],
+                             walls_again=same["walls"])
+
+    t0 = time.perf_counter()
+    files, dDMs, init, _ = write_archives(
+        np.random.default_rng(seed), tag="tb", jitter=0.0, dDMs=TB_DDMS,
+        offsets=TB_OFFSETS)
+    log(f"template build: wrote 2 x 8 x {NCHAN} x {NBIN} int16 archives in "
+        f"{time.perf_counter() - t0:.2f} s")
+    full = build_templates(files, init, "cuda", "tb")
+    dp, dg, res = full["spline"], full["gauss"], full["gauss_res"]
+    log(f"template build: walls (builders warm) {json.dumps(full['walls'])};"
+        f" spline ieig {dp.ieig.tolist()}; launches {full['launches']}")
+    rec.update(walls=full["walls"], ieig=dp.ieig.tolist(),
+               align_z=check_align_fits(full["fits"], dDMs, TB_OFFSETS,
+                                        "4096 card"))
+    for name in ("spl", "gmodel"):
+        rec[f"toas_{name}"] = check_template_toas(
+            full["toas"][name], dDMs, f"get_TOAs with the .{name}", 16)
+    got, z = gauss_truth_z(np.asarray(res.fitted_params),
+                           np.asarray(res.fit_errs))
+    log(f"template build: .gmodel vs bench_template (value, error): {got}; "
+        f"z {z}; red_chi2 {res.red_chi2:.4f}")
+    if max(abs(v) for v in z.values()) > 5:
+        raise AssertionError(f"template build: a Gaussian parameter is not "
+                             f"within 5 sigma of the truth: {z}")
+    rec["gauss_truth_z"] = z
+    for path in ("align", "ppgauss"):
+        c = full["launches"][path]
+        if min(c["fused_setup"], c["phase_moments"],
+               c["phase_moments_merged"]) <= 0:
+            raise AssertionError(f"a kernel did not launch on the {path} "
+                                 f"path: {c}")
+    return full["launches"], rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1617,6 +1920,8 @@ def main():
             phase_narrowband_scat(rng)
         paths["psrchive"], psrchive = phase_psrchive(sc_files, sc_tmpl)
         paths["pipeline_gmodel"] = phase_pipeline_gmodel(nb_files, nb_dDMs)
+        tb_paths, template_build = phase_template_build()
+        paths.update(tb_paths)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # every path runs at 2048 bins: its setup launches are the FFT route's
@@ -1670,7 +1975,7 @@ def main():
         "fits": fits, "scattering_fits": scat_fits, "gm_fits": gm_fits,
         "pipeline_gm": pipeline_gm, "zap": zap_rec,
         "narrowband": narrowband, "narrowband_fit_scat": narrowband_scat,
-        "psrchive": psrchive}
+        "psrchive": psrchive, "template_build": template_build}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

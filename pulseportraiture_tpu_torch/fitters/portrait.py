@@ -26,10 +26,13 @@ from pulseportraiture_tpu_torch.config import DCONST, F0_FACT
 from pulseportraiture_tpu_torch.fitters import newton, nu_zeros, stats
 from pulseportraiture_tpu_torch.ops.noise import noise_PS_profiles
 from pulseportraiture_tpu_torch.ops.scattering import scattering_times
-from pulseportraiture_tpu_torch.ops.setup_dft import fused_setup
+from pulseportraiture_tpu_torch.ops.moments import phase_moments_reference
+from pulseportraiture_tpu_torch.ops.setup_dft import (fused_setup,
+                                                      fused_setup_reference)
 from pulseportraiture_tpu_torch.ops.transform import (_inv2, _inv4,
                                                       mod_pm_half,
-                                                      phase_shifts)
+                                                      phase_shifts,
+                                                      phase_shifts_deriv)
 from pulseportraiture_tpu_torch.utils import DataBunch
 
 
@@ -483,6 +486,62 @@ def fit_portrait(data, model, init_params, P, freqs, nu_fit=None,
                      chi2=res.chi2[0], red_chi2=res.red_chi2[0],
                      snr=res.snr[0], duration=duration,
                      nfeval=res.nfeval[0], return_code=res.return_code[0])
+
+
+def polish_phi_dm(data_port, model_port, phi, DM, P, freqs, nu_fit, errs,
+                  fit_dm=True):
+    """(phi, DM, scales) in float64 after up to two Newton steps on
+    the full-band (phi[, DM]) objective of fit_portrait_full (phi and DM
+    referenced at nu_fit, no scattering), from a float32 fit's solution.
+
+    The kernels take float32 only, and a float32 fit stops where its
+    chi2 rounds (a few hundredths of an error at 4096 x 2048); these
+    steps reach the float64 fit's optimum.  Plain torch on data_port's
+    device: the float64 rfft, the cross-spectrum and the phase moments
+    of fused_setup_reference and phase_moments_reference.  A step is
+    taken only where the curvature is positive definite and the step is
+    finite and within one error of each parameter (near the optimum the
+    change of chi2 is below its rounding, so it cannot judge a step).
+    scales: the per-channel amplitudes C/S at the result.
+    """
+    data = data_port.to(torch.float64)
+    dev, dt = data.device, torch.float64
+    mr, mi = (torch.as_tensor(v, dtype=dt, device=dev)
+              for v in template_spectrum(model_port))
+    Gr, Gi, _ = fused_setup_reference(data, mr, mi, f0_fact=bool(F0_FACT))
+    S0 = torch.sum(mr * mr + mi * mi, dim=-1)
+    freqs = as_tensor(freqs, dev, dt)
+    errs_FT = as_tensor(errs, dev, dt) * math.sqrt(data.shape[-1] / 2.0)
+    w = torch.where(errs_FT > 0.0, errs_FT ** -2.0,
+                    torch.zeros_like(errs_FT))
+    si = stats._masked_inv(w * S0, w)
+    nu = as_tensor(nu_fit, dev, dt)
+    d = phase_shifts_deriv(freqs, nu, nu, float(P))[:1 + int(bool(fit_dm))]
+
+    def moments(x):
+        C, Cp, Cpp = phase_moments_reference(x @ d, Gr, Gi)
+        return w * C, w * Cp, w * Cpp
+
+    x = torch.tensor([float(phi), float(DM) if fit_dm else 0.0][:len(d)],
+                     dtype=dt, device=dev)
+    C, Cp, Cpp = moments(x)
+    for _ in range(2):       # from a float32 optimum: 1e-2 -> 1e-4 -> 1e-8
+        r = C * si
+        g = -2.0 * (d @ (r * Cp))
+        H = -2.0 * ((d * (r * Cpp + Cp * Cp * si)) @ d.T)
+        L, info = torch.linalg.cholesky_ex(H)
+        if int(info) != 0:
+            break
+        step = -torch.cholesky_solve(g[:, None], L)[:, 0]
+        # chi2's covariance is 2 H^-1
+        err = torch.sqrt(2.0 * torch.diagonal(torch.cholesky_inverse(L)))
+        if not bool(torch.all(torch.isfinite(step) &
+                              (torch.abs(step) <= err))):
+            break
+        x = x + step
+        C, Cp, Cpp = moments(x)
+    scales = C * si
+    return float(x[0]), float(x[1]) if fit_dm else float(DM), scales
 
 
 # PortraitFitResult widths for pack/unpack, in field order; the nchan-wide

@@ -1,7 +1,7 @@
-"""Gaussian-model (.gmodel) text file reader.
+"""Gaussian-model (.gmodel) text files.
 
-Port of pulseportraiture_tpu.models.gmodel_io.read_model, evaluating with
-the port's own generator.  The format is the reference's
+Port of pulseportraiture_tpu.models.gmodel_io, evaluating with the port's
+own generator on the host.  The format is the reference's
 (pplib.py:2828-2953): MODEL / CODE / FREQ / DC / TAU / ALPHA lines plus
 one COMPnn line per component with six (value, fit-flag) pairs.  TAU is
 stored in seconds and converted to bins (tau_bin = tau_sec * nbin / P) on
@@ -13,6 +13,30 @@ from __future__ import annotations
 import numpy as np
 
 from pulseportraiture_tpu_torch.models.gaussian import gen_gaussian_portrait
+
+
+def write_model(filename, name, model_code, nu_ref, model_params, fit_flags,
+                alpha, fit_alpha, append=False, quiet=False):
+    """Write a .gmodel file.  model_params[1] is the scattering timescale
+    in *seconds*.  Reference: pplib.py:2828-2865."""
+    with open(filename, "a" if append else "w") as outfile:
+        outfile.write("MODEL   %s\n" % name)
+        outfile.write("CODE    %s\n" % model_code)
+        outfile.write("FREQ    %.5f\n" % nu_ref)
+        outfile.write("DC     % .8f %d\n" % (model_params[0], fit_flags[0]))
+        outfile.write("TAU    % .8f %d\n" % (model_params[1], fit_flags[1]))
+        outfile.write("ALPHA  % .3f      %d\n" % (alpha, fit_alpha))
+        for igauss in range((len(model_params) - 2) // 6):
+            comp = model_params[2 + igauss * 6: 8 + igauss * 6]
+            fit_comp = fit_flags[2 + igauss * 6: 8 + igauss * 6]
+            pairs = []
+            for v, f in zip(comp, fit_comp):
+                pairs.extend([v, f])
+            outfile.write(
+                "COMP%02d % .8f %d  % .8f %d  % .8f %d  % .8f %d  % .8f %d"
+                "  % .8f %d\n" % ((igauss + 1,) + tuple(pairs)))
+    if not quiet:
+        print("%s written." % filename)
 
 
 def read_model(modelfile, phases=None, freqs=None, P=None, quiet=True):
@@ -72,7 +96,7 @@ def read_model(modelfile, phases=None, freqs=None, P=None, quiet=True):
         params = params.copy()
         params[1] *= nbin / P  # seconds -> bins (pplib.py:2936)
     model = gen_gaussian_portrait(model_code, params, alpha, phases,
-                                  freqs, nu_ref)
+                                  freqs, nu_ref).numpy()
     if not quiet:
         print("Model %s: %d components, %d bins, %d channels @ %.3f MHz"
               % (modelname, ngauss, nbin, len(freqs), nu_ref))

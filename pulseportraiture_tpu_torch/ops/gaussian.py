@@ -7,7 +7,8 @@ reproduces the reference's sinc-windowed Gaussian FT (pptoaslib.py:14-50),
 which needs Re[erf(a + ib)]: it is evaluated as exp(-b^2) Re[erf(a + ib)]
 through Weideman's rational approximation of the Faddeeva function, in a
 form that cannot overflow for large b (high harmonics, narrow pulses).
-The instrumental-response functions come with the model-fitting slice.
+The instrumental response (a channel's smearing and the extra response
+widths) is applied to a template on the host as well.
 """
 
 from __future__ import annotations
@@ -163,4 +164,38 @@ def gen_gaussian_profile_FT(params, nbin, applied_scattering=True):
         out = out + gaussian_profile_FT(nbin, loc, wid, amp)
     if applied_scattering:
         out = out * scattering_portrait_FT_np(params[1] / nbin, nbin)
+    return out
+
+
+def instrumental_response_FT(nbin, wid=0.0, irf_type="rect"):
+    """FT of the instrumental response at nbin//2 + 1 harmonics: a
+    rectangle of width wid [rot] (a sinc) or a unit-area Gaussian of
+    FWHM wid; ones when wid == 0.  Reference: pptoaslib.py:112-143."""
+    nharm = nbin // 2 + 1
+    if irf_type == "rect":
+        out = np.sinc(np.arange(nharm) * wid).astype(np.complex128)
+    elif irf_type == "gauss":
+        gp = gaussian_profile_FT(nbin, 0.0, wid, 1.0)
+        out = gp / gp[0] if wid != 0.0 else gp
+    else:
+        raise ValueError(f"Unrecognized instrumental response type "
+                         f"{irf_type!r}")
+    return np.ones(nharm, dtype=np.complex128) if wid == 0.0 else out
+
+
+def instrumental_response_port_FT(nbin, freqs, DM=0.0, P=1.0, wids=(),
+                                  irf_types=()):
+    """The combined instrumental response (nchan, nharm), complex128: the
+    product of the responses of wids/irf_types and, when DM != 0, each
+    channel's dispersive smearing, a rectangle 8.3e-6 chan_bw /
+    (nu/1e3)^3 / P wide.  Reference: pptoaslib.py:145-179."""
+    freqs = np.asarray(freqs, np.float64)
+    nharm = nbin // 2 + 1
+    out = np.ones((len(freqs), nharm), dtype=np.complex128)
+    for wid, irf_type in zip(wids, irf_types):
+        out = out * instrumental_response_FT(nbin, wid, irf_type)[None, :]
+    if DM:
+        chan_bw = abs(freqs[1] - freqs[0])
+        smear_wids = 8.3e-6 * chan_bw / (freqs / 1e3) ** 3 / P
+        out = out * np.sinc(np.arange(nharm)[None, :] * smear_wids[:, None])
     return out

@@ -49,6 +49,8 @@ from pulseportraiture_tpu_torch.fitters.portrait import (
     fit_portrait_full_batch, fit_portrait_full_batch_packed,
     template_spectrum, unpack_result)
 from pulseportraiture_tpu_torch.io.archive import load_data
+from pulseportraiture_tpu_torch.ops.gaussian import \
+    instrumental_response_port_FT
 from pulseportraiture_tpu_torch.ops.noise import get_noise_PS
 from pulseportraiture_tpu_torch.ops.rotate import (rotate_portrait_full,
                                                    rotate_portrait_np)
@@ -175,14 +177,15 @@ class _ModelSource:
             elif p[1] != 0:
                 p[1] *= nbin / P           # seconds -> bins
             return gen_gaussian_portrait(model_code, p, alpha, phases, freqs,
-                                         nu_ref)
+                                         nu_ref).numpy()
         if self.kind == "spline":
             from pulseportraiture_tpu_torch.models.spline import \
-                gen_spline_portrait_np
+                gen_spline_portrait
             name, source, datafile, mean_prof, eigvec, tck = self.payload
-            return gen_spline_portrait_np(
+            return gen_spline_portrait(
                 mean_prof, freqs, eigvec, tck,
-                nbin if nbin != len(mean_prof) else None)
+                nbin if nbin != len(mean_prof) else None,
+                device="cpu").numpy()
         # FITS archive template: t/p-scrunched, baseline removed,
         # nearest-frequency channel matching (pptoas.py:320-339)
         arch = self.payload.copy()
@@ -233,13 +236,18 @@ class GetTOAs:
         self.mharms = []
         self.fit_timing = {}
         self.psrchive_toas = []
+        # DM smearing within channels plus extra response widths/types,
+        # applied to the template by get_TOAs(add_instrumental_response)
+        self.instrumental_response_dict = self.ird = \
+            {"DM": 0.0, "wids": [], "irf_types": []}
 
     def get_TOAs(self, datafile=None, tscrunch=False, nu_refs=None,
                  DM0=None, bary=True, fit_DM=True, fit_GM=False,
                  fit_scat=False, log10_tau=True, scat_guess=None,
                  fix_alpha=True, print_phase=False, print_flux=False,
-                 print_parangle=False, addtnl_toa_flags=None, nu_fits=None,
-                 quiet=None, mesh=None):
+                 print_parangle=False, add_instrumental_response=False,
+                 addtnl_toa_flags=None, method="trust-ncg", bounds=None,
+                 nu_fits=None, quiet=None, mesh=None):
         """Fit every subint of every archive; fills TOA_list and the
         per-archive lists.
 
@@ -253,7 +261,11 @@ class GetTOAs:
         barycentric and is divided by the Doppler factor when bary.  With
         nu_refs every subint takes the per-subint route: a brute FFTFIT
         phase start (no DM seed) and the references pinned.
-        Reference: pptoas.py:150-743.
+        add_instrumental_response: convolve the template with self.ird's
+        response (the channels' dispersive smearing at ird["DM"], and
+        ird["wids"] of ird["irf_types"]).  method and bounds are accepted
+        for the reference's signature and change nothing, as in the JAX
+        package.  Reference: pptoas.py:150-743.
         """
         if mesh is not None:
             raise NotImplementedError("multi-device sharding (mesh) is not "
@@ -318,6 +330,14 @@ class GetTOAs:
                     model = self.model_source.eval(data.phases, freqs,
                                                    float(P),
                                                    unscat=fit_scat)
+                    if add_instrumental_response and \
+                            (self.ird["DM"] or len(self.ird["wids"])):
+                        irf = instrumental_response_port_FT(
+                            data.nbin, freqs, self.ird["DM"], float(P),
+                            self.ird["wids"], self.ird["irf_types"])
+                        model = np.fft.irfft(
+                            irf * np.fft.rfft(model, axis=-1), n=data.nbin,
+                            axis=-1)
                     nu_anchor = float(freqs.mean())
                     # dispersion ADDED to the template once, host f64:
                     # the fit solves a small residual dDM around DM0

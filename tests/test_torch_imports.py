@@ -6,6 +6,8 @@ functions count too.
 
 import ast
 import os
+import subprocess
+import sys
 
 import pytest
 
@@ -49,3 +51,53 @@ def test_the_scan_sees_the_port():
     assert len(files) > 30
     mods = {m for f in files for _, m in _imported_modules(f)}
     assert "pulseportraiture_tpu_torch.io.psrfits" in mods
+    # the template builders are scanned too
+    rel = {os.path.relpath(f, REPO) for f in files}
+    for name in ("models/wavelet.py", "models/spline.py", "portrait.py",
+                 "fitters/powlaw.py", "sim/fake.py", "pipelines/align.py",
+                 "cli/ppalign.py", "cli/ppspline.py", "cli/ppgauss.py"):
+        assert f"pulseportraiture_tpu_torch/{name}" in rel
+
+
+def test_builders_run_without_the_jax_package(tmp_path):
+    """A fresh process runs the whole template workflow on the CPU (fake
+    archives, ppalign, ppspline, ppgauss, get_TOAs with each model) and
+    has imported neither jax nor pulseportraiture_tpu."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from pulseportraiture_tpu_torch.models.gmodel_io import "
+        "write_model\n"
+        "from pulseportraiture_tpu_torch.sim.fake import make_fake_pulsar\n"
+        "from pulseportraiture_tpu_torch.cli import ppalign, ppgauss, "
+        "ppspline\n"
+        "from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs\n"
+        f"d = {str(tmp_path)!r}\n"
+        "open(d + '/t.par', 'w').write('PSR J1\\nRAJ 01:02:03\\n"
+        "DECJ 04:05:06\\nF0 200.0\\nPEPOCH 57000\\nDM 20.0\\n')\n"
+        "write_model(d + '/t.gmodel', 'T', '000', 1500.0, [0, 0, 0.4, 0, "
+        "0.05, -0.4, 5.0, -1.6], [1] * 8, -4.0, 0, quiet=True)\n"
+        "rng = np.random.default_rng(0)\n"
+        "fs = [d + f'/e{i}.fits' for i in range(2)]\n"
+        "for f in fs:\n"
+        "    make_fake_pulsar(d + '/t.gmodel', d + '/t.par', outfile=f, "
+        "nsub=1, nchan=8, nbin=64, noise_stds=0.05, quiet=True, rng=rng)\n"
+        "ppalign.main(['-d', *fs, '-o', d + '/a.fits', '--device', 'cpu', "
+        "'--quiet'])\n"
+        "ppspline.main(['-d', d + '/a.fits', '-o', d + '/a.spl', "
+        "'--device', 'cpu', '--quiet'])\n"
+        "ppgauss.main(['-d', d + '/a.fits', '-o', d + '/a.gmodel', "
+        "'--niter', '1', '--device', 'cpu', '--quiet'])\n"
+        "n = 0\n"
+        "for m in ('/a.spl', '/a.gmodel'):\n"
+        "    gt = GetTOAs(fs, d + m, device='cpu', quiet=True)\n"
+        "    gt.get_TOAs(quiet=True)\n"
+        "    n += len(gt.TOA_list)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'pulseportraiture_tpu')]\n"
+        "print(n, len(bad))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-2:] == ["4", "0"], out.stdout

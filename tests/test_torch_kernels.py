@@ -523,3 +523,99 @@ def test_narrowband_fits_on_card_match_cpu_float64(cuda):
                                          torch.float64), algorithm=alg)
         z = (g.shift.double().cpu() - c.shift) / c.shift_err
         assert float(z.abs().max()) < 1e-2, alg
+
+
+def _builder_archives(tmp_path, nfile=2):
+    """A two-component .gmodel and nfile one-subint archives of it, 32
+    channels x 256 bins, from the port's own sim.fake (no JAX here)."""
+    from pulseportraiture_tpu_torch.io.mjd import MJD
+    from pulseportraiture_tpu_torch.models.gmodel_io import write_model
+    from pulseportraiture_tpu_torch.sim.fake import make_fake_pulsar
+    par = tmp_path / "b.par"
+    par.write_text("PSR J1\nRAJ 01:02:03\nDECJ 04:05:06\nF0 200.0\n"
+                   "PEPOCH 57000\nDM 20.0\n")
+    gm = str(tmp_path / "b.gmodel")
+    p = [0.0, 0.0, 0.4, 0.0, 0.05, -0.4, 5.0, -1.6,
+         0.47, 0.0, 0.02, 0.0, 2.0, -1.0]
+    write_model(gm, "B", "000", 1500.0, p, [1] * len(p), -4.0, 0,
+                quiet=True)
+    rng = np.random.default_rng(21)
+    files = []
+    for i in range(nfile):
+        f = str(tmp_path / f"b{i}.fits")
+        make_fake_pulsar(gm, str(par), outfile=f, nsub=1, nchan=32,
+                         nbin=256, tsub=600.0, dDM=1e-4 * i,
+                         start_MJD=MJD(57000.0 + i), noise_stds=0.05,
+                         quiet=True, rng=rng)
+        files.append(f)
+    return files
+
+
+@pytest.mark.cuda
+def test_gaussian_model_on_card_matches_cpu_float64(cuda, tmp_path):
+    """make_gaussian_model(niter=1) on the card (float64 LM; float32
+    check_convergence fits) against the CPU float64 run: every fitted
+    parameter within 0.01 of its error."""
+    from pulseportraiture_tpu_torch.portrait import DataPortrait
+    f = _builder_archives(tmp_path, 1)[0]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        dp = DataPortrait(f, quiet=True, device=dev)
+        res[dev] = dp.make_gaussian_model(
+            ngauss=2, niter=1, quiet=True,
+            outfile=str(tmp_path / f"{dev}.gmodel"))
+    e = np.asarray(res["cpu"].fit_errs)
+    fitted = e > 0
+    d = np.abs(res["cuda"].fitted_params - res["cpu"].fitted_params)
+    assert fitted.sum() >= 10
+    assert np.max(d[fitted] / e[fitted]) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_builders_fit_through_the_kernels(cuda, tmp_path):
+    """The float32 fits inside the builders reach the CUDA kernels, not
+    the twins: check_convergence and align_archives each raise the
+    launch counts of fused_setup, phase_moments and
+    phase_moments_merged."""
+    from pulseportraiture_tpu_torch.pipelines.align import align_archives
+    from pulseportraiture_tpu_torch.portrait import DataPortrait
+    files = _builder_archives(tmp_path, 2)
+    counters = (sdft.fused_setup, mom.phase_moments,
+                mom.phase_moments_merged)
+
+    def launched(run):
+        before = [c.launches for c in counters]
+        run()
+        torch.cuda.synchronize()
+        return [c.launches - b for c, b in zip(counters, before)]
+
+    dp = DataPortrait(files[0], quiet=True, device="cuda")
+    dp.make_gaussian_model(ngauss=1, niter=0, quiet=True, writemodel=False)
+    assert min(launched(lambda: dp.check_convergence(dp.nu0))) > 0
+    out = str(tmp_path / "aligned.fits")
+    assert min(launched(lambda: align_archives(
+        datafiles=files, initial_guess=files[0], tscrunch=True,
+        outfile=out, quiet=True, device="cuda"))) > 0
+
+
+@pytest.mark.cuda
+def test_align_on_card_matches_cpu_float64(cuda, tmp_path):
+    """align_archives on the card (float32 fits through the kernels, then
+    the float64 polish) against the CPU float64 run: each subint's phi
+    and DM within 1e-6 of their errors, the averages (stored as float32)
+    within 2**-23 of their largest value."""
+    from pulseportraiture_tpu_torch.io.psrfits import read_psrfits
+    from pulseportraiture_tpu_torch.pipelines.align import align_archives
+    files = _builder_archives(tmp_path, 2)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        out = str(tmp_path / f"al-{dev}.fits")
+        _, fits = align_archives(datafiles=files, initial_guess=files[0],
+                                 tscrunch=True, outfile=out, quiet=True,
+                                 device=dev, return_fits=True)
+        got[dev] = (read_psrfits(out).data, fits)
+    (a, fa), (b, fb) = got["cuda"], got["cpu"]
+    for x, y in zip(fa, fb):
+        assert abs(x["phi"] - y["phi"]) <= 1e-6 * y["phi_err"]
+        assert abs(x["DM"] - y["DM"]) <= 1e-6 * y["DM_err"]
+    assert np.max(np.abs(a - b)) <= 2.0 ** -23 * np.max(np.abs(b))
