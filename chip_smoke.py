@@ -17,7 +17,8 @@ parallel), then:
      the setup also as the per-item route calls it, one item of 4096 rows
      without seed weights, nh=128 and 1025; and the setup's SGEMM route
      (csrc/setup.cu) at a width the FFT route does not take, 4096
-     channels x 1280 bins, capped and full band;
+     channels x 1280 bins, capped and full band, timed beside the same
+     two library calls;
   3. the scattering-moments kernel against its float64 twin at B=32,
      nh=128 and 1025, phases in [-3, 3] turns, taus around
      8e-3 (nu/1500)^-4 rot over two decades: each of the 9 sums within
@@ -100,7 +101,19 @@ parallel), then:
      launch the setup, phase-moments and merged kernels.  The walls
      (PCA / smoothing / spline fit, bootstrap / LM / check_convergence),
      the LM's Jacobians and rejected steps and its ms per Jacobian are
-     printed, at 512 both at the builders' first use and again.
+     printed, at 512 both at the builders' first use and again;
+ 17. profiling (phase_profiling, run before phase 6): profiling.trace
+     around one B=64 capped (phi, DM) batch at 4096 x 2048 under an
+     annotate range; the Chrome trace must name the setup FFT and
+     phase-moments kernels and the range;
+ 18. the sharded pipeline (phase_mesh, after phase 14):
+     get_TOAs(mesh=make_mesh(2, 2, devices=["cuda:0"] * 4)) on phase 6's
+     archives with and without fit_GM and on phase 7's with fit_scat:
+     every TOA, DM (GM, log10 scat_time) within 0.01 sigma of the
+     unsharded card run; each of the 4 shards launched the setup and
+     moments kernels, the setup shards x chunks times; with more than one
+     card visible also make_mesh() over the cards (one card: a line says
+     the multi-card run did not happen).
 ptxas's registers and spills are printed for every kernel; a spill in the
 setup FFT or the scattering kernel fails the run.  Launch counts are
 reset before each pipeline run (the main paths) and
@@ -289,13 +302,13 @@ def tf32_round(t):
     return ((i + 0x1000) & -0x2000).view(torch.float32)
 
 
-def dft_matrix(nh, dev):
-    """(NBIN, 2 nh) float32 [cos | -sin] of the first nh harmonics."""
+def dft_matrix(nh, dev, nbin=NBIN):
+    """(nbin, 2 nh) float32 [cos | -sin] of the first nh harmonics."""
     import torch
-    j = torch.arange(NBIN, dtype=torch.int64, device=dev)
+    j = torch.arange(nbin, dtype=torch.int64, device=dev)
     k = torch.arange(nh, dtype=torch.int64, device=dev)
-    ang = torch.remainder(j[:, None] * k[None, :], NBIN).double() * (
-        2.0 * math.pi / NBIN)
+    ang = torch.remainder(j[:, None] * k[None, :], nbin).double() * (
+        2.0 * math.pi / nbin)
     return torch.cat([torch.cos(ang), -torch.sin(ang)], dim=1).float()
 
 
@@ -391,13 +404,19 @@ def setup_gemm_route(dev):
         ms = cuda_ms(lambda: sdft.fused_setup(x, mr_t, mi_t, w=wt))
         plain = cuda_ms(lambda: sdft.fused_setup_reference(x, mr_t, mi_t,
                                                            w=wt))
+        E = dft_matrix(mr.shape[-1], dev, nbin)
+        lib = cuda_ms(lambda: gemm_cross_spectrum(x, E, mr_t, mi_t, None))
+        lib_fft = cuda_ms(lambda: rfft_cross_spectrum(x, mr_t, mi_t, None))
+        del E
         bnd, by = setup_bound(B, nbin, mr.shape[-1], 2, 4, False)
         log(f"setup SGEMM route[{name}] nbin={nbin} nh={mr.shape[-1]} max "
             f"abs err Gr/Gi/sd/gsr/gsi {errs} bounds {bounds}; kernel "
-            f"{ms:.4f} ms, plain (rfft twin) {plain:.4f} ms, bound "
-            f"{bnd:.4f} ms ({by}) (B={B})")
+            f"{ms:.4f} ms, plain (rfft twin) {plain:.4f} ms, library calls: "
+            f"float32 GEMM {lib:.4f} ms, rfft + cross-spectrum "
+            f"{lib_fft:.4f} ms; bound {bnd:.4f} ms ({by}) (B={B})")
         rec[name] = dict(nbin=nbin, nh=mr.shape[-1], max_abs_err=max(
-            errs[:2]), ms=ms, plain_ms=plain, library_ms=plain, bound_ms=bnd,
+            errs[:2]), ms=ms, plain_ms=plain, library_ms=min(lib, lib_fft),
+            library_gemm_ms=lib, library_rfft_ms=lib_fft, bound_ms=bnd,
             bound_by=by)
     return rec
 
@@ -973,7 +992,7 @@ def phase_pipeline(rng):
     if min(launches["fused_setup"], launches["phase_moments"]) <= 0:
         raise AssertionError(f"a kernel did not launch on the main path: "
                              f"{launches}")
-    return launches, (files, dDMs, tmpl)
+    return launches, (files, dDMs, tmpl), gt.TOA_list
 
 
 def phase_pipeline_scat(rng):
@@ -1022,7 +1041,7 @@ def phase_pipeline_scat(rng):
     if min(launches["fused_setup"], launches["scattering_moments"]) <= 0:
         raise AssertionError(f"a kernel did not launch on the fit_scat "
                              f"path: {launches}")
-    return launches, (files, dDMs, tmpl)
+    return launches, (files, dDMs, tmpl), gt.TOA_list
 
 
 def phase_merged_kernel(dev):
@@ -1470,14 +1489,14 @@ def toa_sigmas(got, want):
 def phase_pipeline_gm(pipe_arch, scat_arch):
     """GetTOAs(fit_GM=True) on the card on the pipeline phase's archives,
     and with fit_scat on the scattered ones; returns the launch counts of
-    each run and the figures."""
+    each run, the figures and the fit_GM run's TOAs."""
     import numpy as np
     import torch
 
     from pulseportraiture_tpu_torch.io.tim import write_TOAs
     from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
 
-    rec, launches = {}, {}
+    rec, launches, toas = {}, {}, {}
     for name, (files, dDMs, tmpl), kw in (
             ("pipeline_gm", pipe_arch, dict(fit_GM=True)),
             ("pipeline_gm_fit_scat", scat_arch,
@@ -1488,6 +1507,7 @@ def phase_pipeline_gm(pipe_arch, scat_arch):
         gt.get_TOAs(quiet=True, **kw)
         wall = time.perf_counter() - t0
         launches[name] = read_launches()
+        toas[name] = gt.TOA_list
         lines = write_TOAs(gt.TOA_list, outfile=os.path.join(
             WORK, f"{name}.tim"), append=False)
         recd = np.asarray(gt.DeltaDM_means)
@@ -1524,7 +1544,141 @@ def phase_pipeline_gm(pipe_arch, scat_arch):
             raise AssertionError(f"{name}: card vs float64 CPU run "
                                  f"{z} sigma > 0.01")
         rec[name]["vs_f64_sigma"] = z
-    return launches["pipeline_gm"], launches["pipeline_gm_fit_scat"], rec
+    return (launches["pipeline_gm"], launches["pipeline_gm_fit_scat"], rec,
+            toas["pipeline_gm"])
+
+
+def scat_sigmas(got, want):
+    """Largest |log10 scat_time| difference of two fit_scat TOA lists, in
+    want's sigmas."""
+    return max(abs(a.flags["log10_scat_time"] - b.flags["log10_scat_time"]) /
+               b.flags["log10_scat_time_err"] for a, b in zip(got, want))
+
+
+def phase_mesh(pipe_arch, scat_arch, unsharded):
+    """get_TOAs(mesh=...) on the card: a 2 x 2 mesh laid over the one card
+    (make_mesh(2, 2, devices=["cuda:0"] * 4): the sharded logic, two
+    batch shards in host threads, two channel slabs each, not a speed-up)
+    on phase 6's archives with and without fit_GM and on phase 7's with
+    fit_scat.  Every TOA, DM (GM, log10 scat_time) within 0.01 sigma of
+    the unsharded card run (`unsharded`: name -> TOA list); every shard
+    launched the setup and the moments kernel, the setup once a chunk
+    (the global count = shards x chunks = the shards' tallies added).
+    Where several cards are visible, also make_mesh() over them.
+    Returns the launch counts of each run and the figures."""
+    import torch
+
+    from pulseportraiture_tpu_torch.parallel.mesh import make_mesh
+    from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
+
+    runs = [("mesh", pipe_arch, {}, "pipeline"),
+            ("mesh_gm", pipe_arch, dict(fit_GM=True), "pipeline_gm"),
+            ("mesh_fit_scat", scat_arch, dict(fit_scat=True),
+             "pipeline_fit_scat")]
+    meshes = [("2x2 on cuda:0", make_mesh(2, 2, devices=["cuda:0"] * 4))]
+    ncard = torch.cuda.device_count()
+    if ncard > 1:
+        meshes.append((f"make_mesh() over {ncard} cards", make_mesh()))
+    else:
+        log("mesh: the multi-card run did not happen (1 card visible); the "
+            "2 x 2 mesh runs on cuda:0")
+    paths, rec = {}, {}
+    for label, mesh in meshes:
+        nshard = mesh.shape["batch"] * mesh.shape["chan"]
+        for name, (files, _, tmpl), kw, ref in runs:
+            if label != meshes[0][0]:
+                name = name + "_cards"
+            gt = GetTOAs(files, tmpl, device="cuda", quiet=True)
+            mesh.reset_launches()
+            reset_launches()
+            t0 = time.perf_counter()
+            gt.get_TOAs(quiet=True, mesh=mesh, **kw)
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            chunks = gt.fit_timing["batched_chunks"]
+            z = toa_sigmas(gt.TOA_list, unsharded[ref])
+            if "fit_scat" in kw:
+                z.append(scat_sigmas(gt.TOA_list, unsharded[ref]))
+            kern = ("scattering_moments" if "fit_scat" in kw
+                    else "phase_moments")
+            shard_setup = [c.get("fused_setup", 0)
+                           for c in mesh.launches.values()]
+            shard_mom = [c.get(kern, 0) for c in mesh.launches.values()]
+            log(f"{name} ({label}): {len(gt.TOA_list)} TOAs in {wall:.2f} s "
+                f"(timing {json.dumps(gt.fit_timing)}); vs the unsharded card "
+                f"run (TOA, DM, GM[, log10 scat_time]): {z} sigma; launches "
+                f"{launches}; per shard {mesh.launches}")
+            if len(gt.TOA_list) != len(unsharded[ref]):
+                raise AssertionError(f"{name}: {len(gt.TOA_list)} TOAs")
+            if max(z) > 1e-2:
+                raise AssertionError(f"{name}: {z} sigma from the unsharded "
+                                     "card run > 0.01")
+            if min(shard_mom) <= 0 or chunks <= 0 or \
+                    shard_setup != [chunks] * nshard or \
+                    launches["fused_setup"] != nshard * chunks:
+                raise AssertionError(
+                    f"{name}: a shard's kernels did not launch, or the setup "
+                    f"launches ({launches['fused_setup']}, per shard "
+                    f"{shard_setup}) are not shards x chunks ({nshard} x "
+                    f"{chunks})")
+            paths[name] = launches
+            rec[name] = dict(mesh=label, toas=len(gt.TOA_list), wall_s=wall,
+                             chunks=chunks, shards=nshard,
+                             vs_unsharded_sigma=z,
+                             launches_by_shard={f"{k[0]},{k[1]}": v for k, v
+                                                in mesh.launches.items()})
+    rec["multi_card"] = ncard > 1
+    return paths, rec
+
+
+def phase_profiling(dev):
+    """profiling.trace around one B=64 (phi, DM) batch at 4096 x 2048
+    (capped; a warm-up batch first): the Chrome trace must name the setup
+    FFT and phase-moments kernels and the annotate range.  Returns the
+    trace's figures."""
+    import torch
+
+    from pulseportraiture_tpu_torch import profiling
+    from pulseportraiture_tpu_torch.fitters.portrait import \
+        fit_portrait_full_batch
+
+    B = 64
+    data, freqs, model, _, _, nu_fit = phidm_recipe(dev, B, seed=11)
+    mft_ri = template_routes(model)["capped"]
+    t = dict(dtype=torch.float32, device=dev)
+
+    def run():
+        return fit_portrait_full_batch(
+            data, mft_ri, torch.zeros((B, 5), **t), torch.full((B,), P, **t),
+            freqs.to(**t), torch.full((B, NCHAN), NOISE, **t),
+            nu_fits=torch.full((B, 3), nu_fit, **t), dtype=torch.float32)
+
+    run()
+    torch.cuda.synchronize()
+    tdir = os.path.join(WORK, "trace")
+    t0 = time.perf_counter()
+    with profiling.trace(tdir):
+        with profiling.annotate("pp_fit_batch"):
+            run()
+    wall = time.perf_counter() - t0
+    (name,) = [f for f in os.listdir(tdir) if f.endswith(".json")]
+    with open(os.path.join(tdir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy_ms = sum(e.get("dur", 0.0) for e in kernels) / 1e3
+    names = {e.get("name", "") for e in events}
+    found = {k: sum(1 for e in kernels if k in e.get("name", ""))
+             for k in ("setup_fft_kernel", "phase_moments_kernel")}
+    log(f"profiling: trace {name} ({os.path.getsize(os.path.join(tdir, name))}"
+        f" bytes) of one B={B} capped batch, {wall:.2f} s traced; "
+        f"{len(kernels)} kernels, {busy_ms:.3f} ms busy; by name {found}; "
+        f"annotate range 'pp_fit_batch' {'pp_fit_batch' in names}")
+    if min(found.values()) <= 0 or "pp_fit_batch" not in names:
+        raise AssertionError("profiling: the trace does not name the hand "
+                             "kernels and the annotate range")
+    shutil.rmtree(tdir, ignore_errors=True)
+    return dict(kernels=len(kernels), busy_ms=busy_ms, wall_s=wall,
+                by_name=found)
 
 
 def phase_zap(seed=42):
@@ -1903,11 +2057,17 @@ def main():
     scat_fits = phase_scat_fit(dev)
     gm_fits = phase_gm_fit(dev)
     try:
-        paths = {}
-        paths["pipeline"], pipe_arch = phase_pipeline(rng)
-        paths["pipeline_fit_scat"], scat_arch = phase_pipeline_scat(rng)
-        paths["pipeline_gm"], paths["pipeline_gm_fit_scat"], pipeline_gm = \
-            phase_pipeline_gm(pipe_arch, scat_arch)
+        os.makedirs(WORK, exist_ok=True)
+        prof = phase_profiling(dev)
+        paths, unsharded = {}, {}
+        paths["pipeline"], pipe_arch, unsharded["pipeline"] = \
+            phase_pipeline(rng)
+        paths["pipeline_fit_scat"], scat_arch, \
+            unsharded["pipeline_fit_scat"] = phase_pipeline_scat(rng)
+        paths["pipeline_gm"], paths["pipeline_gm_fit_scat"], pipeline_gm, \
+            unsharded["pipeline_gm"] = phase_pipeline_gm(pipe_arch, scat_arch)
+        mesh_paths, mesh = phase_mesh(pipe_arch, scat_arch, unsharded)
+        paths.update(mesh_paths)
         paths["zap"], zap_rec = phase_zap()
         t0 = time.perf_counter()
         nb_files, nb_dDMs, tmpl, injected = write_archives(rng, nsub=4,
@@ -1975,7 +2135,8 @@ def main():
         "fits": fits, "scattering_fits": scat_fits, "gm_fits": gm_fits,
         "pipeline_gm": pipeline_gm, "zap": zap_rec,
         "narrowband": narrowband, "narrowband_fit_scat": narrowband_scat,
-        "psrchive": psrchive, "template_build": template_build}
+        "psrchive": psrchive, "template_build": template_build,
+        "mesh": mesh, "profiling": prof}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

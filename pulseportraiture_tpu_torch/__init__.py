@@ -13,7 +13,10 @@ same inputs.  Layers follow the JAX package:
   io/        archive loading (the PSRFITS codec is shared with the JAX
              package, which imports no JAX at those modules)
   pipelines/ GetTOAs: archives -> batched fits -> TOAs
-  cli/       pptoas
+  parallel/  batch- and channel-sharded fits over several devices
+  cli/       pptoas, ppzap, ppalign, ppspline, ppgauss
+  viz, profiling  the plots (matplotlib, imported when one is drawn) and
+             the trace hooks (torch.profiler)
 
 Every entry point takes an explicit `device`; float32 is the working type
 on the card, float64 the parity type on the CPU.  This package imports

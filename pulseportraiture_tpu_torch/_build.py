@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -30,6 +31,7 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 BUILD_DIR = _PKG.parent / "build" / "pp_kernels"
 
 _lib = None
+_lock = threading.Lock()
 build_info = {"seconds": 0.0, "cached": None, "log": ""}
 
 
@@ -68,10 +70,16 @@ def _declare(lib):
 
 
 def load_kernels():
-    """The loaded kernel library, building it first if needed."""
-    global _lib
+    """The loaded kernel library, building it first if needed (once, when
+    the shards of a sharded fit ask for it from several threads)."""
     if _lib is not None:
         return _lib
+    with _lock:
+        return _lib if _lib is not None else _load()
+
+
+def _load():
+    global _lib
     csrc = _PKG / "csrc"
     h = hashlib.sha256()
     for name in _SOURCES + _HEADERS:

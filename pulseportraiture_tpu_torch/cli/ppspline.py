@@ -4,8 +4,9 @@
         [-o model.spl] [-N prof] [-s] [-n 10] [--device cuda|cpu]
 
 The builder computes in float64 on the chosen device ("cuda", the
-default, needs a card).  --plots/--saveplots are not ported.  Reference
-CLI: ppspline.py:279-383.
+default, needs a card).  --plots shows, --saveplots PREFIX writes
+PREFIX_eig.png and PREFIX_spl.png: the eigenprofiles and the spline
+curve's projections (matplotlib).  Reference CLI: ppspline.py:279-383.
 """
 
 from __future__ import annotations
@@ -44,11 +45,9 @@ def build_parser():
     p.add_argument("-t", "--max_nbreak", type=int, default=None,
                    help="max number of spline breakpoints")
     p.add_argument("--plots", action="store_true",
-                   help="show eigenprofile and spline-projection plots "
-                        "(not ported)")
+                   help="show eigenprofile and spline-projection plots")
     p.add_argument("--saveplots", default=None,
-                   help="save the plots with this filename prefix "
-                        "(not ported)")
+                   help="save the plots with this filename prefix")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="device for the builder (default: cuda)")
     p.add_argument("--quiet", action="store_true")
@@ -57,9 +56,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.plots or args.saveplots:
-        raise NotImplementedError("plotting is not ported: ROADMAP queue 1, "
-                                  "viz and profiling")
     from pulseportraiture_tpu_torch.portrait import DataPortrait
 
     dp = DataPortrait(args.datafile, quiet=args.quiet, device=args.device)
@@ -72,6 +68,12 @@ def main(argv=None):
         model_name=args.model_name, quiet=args.quiet)
     dp.write_model(args.outfile or (args.datafile + ".spl"),
                    quiet=args.quiet)
+    if args.plots or args.saveplots:
+        pre = args.saveplots
+        dp.show_eigenprofiles(savefig=f"{pre}_eig.png" if pre else False,
+                              show=args.plots)
+        dp.show_spline_curve_projections(
+            savefig=f"{pre}_spl.png" if pre else False, show=args.plots)
     if args.archive:
         dp.write_model_archive(args.archive, quiet=args.quiet)
     return 0

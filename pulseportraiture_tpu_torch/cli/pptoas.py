@@ -3,13 +3,16 @@
     python -m pulseportraiture_tpu_torch.cli.pptoas -d epochs -m PSR.spl \
         -o PSR.tim [--fit_dt4] [--fit_scat [--fit_alpha] [--no_logscat]] \
         [--nu_ref MHz] [--nu_tau MHz] [--one_DM] [--princeton] \
-        [--narrowband | --psrchive [--algorithm PGS]] [--device cuda|cpu]
+        [--narrowband | --psrchive [--algorithm PGS]] [--showplot] \
+        [--saveplot PREFIX] [--device cuda|cpu]
 
 Runs the (phi, DM) fit, with --fit_dt4 also GM, with --fit_scat the
 scattering fit; with --narrowband per-channel FFTFIT TOAs, with
 --psrchive per-channel TOAs by a pat-style estimator.  All on the chosen
 device: "cuda" (the default) needs a card and stops with an error
-without one.  The template is a .gmodel, a .spl or a FITS archive.  The
+without one.  The template is a .gmodel, a .spl or a FITS archive.
+--showplot/--saveplot draw the first fitted subint of each archive
+(GetTOAs.show_fit; matplotlib).  The
 princeton output path of the reference calls an undefined method
 (pptoas.py:1599-1601); here it writes through io.tim.write_princeton_TOA.
 Reference CLI: pptoas.py:1422-1629.
@@ -85,6 +88,11 @@ def build_parser():
                    help="drop TOAs below this S/N")
     p.add_argument("--princeton", action="store_true",
                    help="write princeton-format TOAs instead of IPTA")
+    p.add_argument("--showplot", action="store_true",
+                   help="show the residual plot of the first fitted "
+                        "subint per archive")
+    p.add_argument("--saveplot", default=None,
+                   help="save residual plots with this filename prefix")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="device for the fits (default: cuda)")
     p.add_argument("--quiet", action="store_true")
@@ -149,6 +157,16 @@ def main(argv=None):
                     print_flux=args.print_flux,
                     print_parangle=args.print_parangle,
                     addtnl_toa_flags=addtnl)
+
+    if (args.showplot or args.saveplot) and not args.narrowband:
+        for iarch, df in enumerate(gt.order):
+            if not len(gt.ok_isubs[iarch]):
+                continue
+            isub = gt.ok_isubs[iarch][0]
+            sf = f"{args.saveplot}_{iarch}_{isub}.png" \
+                if args.saveplot else False
+            gt.show_fit(datafile=df, isub=isub, show=args.showplot,
+                        savefig=sf)
 
     if args.one_DM:
         # each TOA's DM becomes its archive's DeltaDM_mean + DM0

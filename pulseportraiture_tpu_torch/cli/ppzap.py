@@ -9,8 +9,9 @@ Without a model, clips channels by their noise levels; with one (-m),
 fits TOAs on the chosen device ("cuda", the default, needs a card) and
 flags channels by reduced chi2 and S/N.  The mask is applied and a
 masked archive written (<datafile>.zap.fits by default); --print_cmds
-prints paz-style commands instead.  --showplot/--saveplot (the reduced
-chi2 histogram) are not ported.  Reference CLI: ppzap.py:98-241.
+prints paz-style commands instead.  --showplot/--saveplot FILE show or
+write the histogram of the channels' reduced chi2 with the threshold
+marked (model path; matplotlib).  Reference CLI: ppzap.py:98-241.
 """
 
 from __future__ import annotations
@@ -43,15 +44,38 @@ def build_parser():
     p.add_argument("--print_cmds", action="store_true",
                    help="print paz-style commands instead of writing")
     p.add_argument("--showplot", action="store_true",
-                   help="model path: show the channel red-chi2 histogram "
-                        "(not ported)")
+                   help="model path: show the channel red-chi2 histogram")
     p.add_argument("--saveplot", default=None,
-                   help="model path: save the histogram to this file "
-                        "(not ported)")
+                   help="model path: save the histogram to this file")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="device for the fits (default: cuda)")
     p.add_argument("--quiet", action="store_true")
     return p
+
+
+def show_rchi2_histogram(channel_red_chi2s, threshold, show=False,
+                         savefig=None):
+    """Histogram of the channels' reduced chi2 (get_channels_to_zap's
+    channel_red_chi2s) with the threshold marked; returns the figure."""
+    import matplotlib
+    if not show:
+        matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    import numpy as np
+    rchi2s = np.concatenate(
+        [np.asarray(r) for arch in channel_red_chi2s for r in arch]) \
+        if channel_red_chi2s else np.array([])
+    fig, ax = plt.subplots()
+    ax.hist(rchi2s[np.isfinite(rchi2s)], bins=30, color="gray")
+    ax.axvline(threshold, color="r", ls="--", label=f"threshold {threshold}")
+    ax.set_xlabel("Channel reduced chi2")
+    ax.legend()
+    if savefig:
+        fig.savefig(savefig)
+    if show:
+        plt.show()
+    plt.close(fig)
+    return fig
 
 
 def main(argv=None):
@@ -59,9 +83,6 @@ def main(argv=None):
     outfile = args.outfile or (args.datafile + ".zap.fits")
 
     if args.modelfile:
-        if args.showplot or args.saveplot:
-            raise NotImplementedError("plotting is not ported: ROADMAP "
-                                      "queue 1, viz and profiling")
         import torch
 
         from pulseportraiture_tpu_torch.io.archive import (
@@ -75,6 +96,9 @@ def main(argv=None):
         zaps = zap_channels_from_fit(
             gt, SNR_threshold=args.snr_threshold,
             rchi2_threshold=args.rchi2_threshold)
+        if args.showplot or args.saveplot:
+            show_rchi2_histogram(gt.channel_red_chi2s, args.rchi2_threshold,
+                                 show=args.showplot, savefig=args.saveplot)
         for iarch, arch_zaps in enumerate(zaps):
             for ii, zap in enumerate(arch_zaps):
                 isub = gt.ok_isubs[iarch][ii]

@@ -14,6 +14,7 @@ covariance.  Reference: pptoaslib.py:928-1096.
 
 from __future__ import annotations
 
+import functools
 import math
 import time
 from typing import NamedTuple
@@ -24,6 +25,7 @@ import torch
 from pulseportraiture_tpu_torch._device import as_tensor, require_f32_matmul
 from pulseportraiture_tpu_torch.config import DCONST, F0_FACT
 from pulseportraiture_tpu_torch.fitters import newton, nu_zeros, stats
+from pulseportraiture_tpu_torch.ops.launches import tally
 from pulseportraiture_tpu_torch.ops.noise import noise_PS_profiles
 from pulseportraiture_tpu_torch.ops.scattering import scattering_times
 from pulseportraiture_tpu_torch.ops.moments import phase_moments_reference
@@ -268,13 +270,21 @@ def _fit_batch(data_ports, model_ft_ri, init_params, Ps, freqs, errs,
                weights=None, nu_fits=None, fit_flags=(1, 1, 0, 0, 0),
                log10_tau=True, max_iter=100, scales=None, dtype=None,
                seed_phase=True, nu_outs=None, scattering=None, option=0,
-               is_toa=True):
+               is_toa=True, chan_devices=None, tallies=None):
     """fit_portrait_full_batch's work; also returns the fit's FitSetup and
-    the optimizer's NewtonResult (fit_portrait reads its moments)."""
+    the optimizer's NewtonResult (fit_portrait reads its moments).
+
+    chan_devices: the devices of a channel group (parallel.mesh), lead
+    first: the channels are cut into as many slabs, each set up and
+    reduced on its own device (tallies: a launch tally per slab), and the
+    rest of the fit runs on the lead.  model_ft_ri may then also be a dict
+    {device: (mr, mi)} holding the template on each device.
+    """
     ff = tuple(int(bool(f)) for f in fit_flags)
     scattering = bool(ff[3] or ff[4]) or bool(scattering)
     log10_tau = bool(log10_tau) and scattering
-    dev = data_ports.device
+    devices = [torch.device(d) for d in chan_devices or [data_ports.device]]
+    dev = devices[0]
     require_f32_matmul("fit_portrait_full_batch", dev)
     if dtype is None:
         dtype = (torch.float32 if data_ports.dtype == torch.int16
@@ -283,17 +293,13 @@ def _fit_batch(data_ports, model_ft_ri, init_params, Ps, freqs, errs,
         raise TypeError(f"fit dtype must be floating, got {dtype}")
     B, nchan, nbin = data_ports.shape
 
-    def as_t(v):
-        return torch.as_tensor(v, dtype=dtype, device=dev)
+    def as_t(v, d=dev):
+        return torch.as_tensor(v, dtype=dtype, device=d)
 
-    x = data_ports
     if scales is not None:
         if F0_FACT:
             raise ValueError("int16 ingest requires F0_FACT zeroing")
         scales = as_t(scales).expand(B, nchan).contiguous()
-    elif x.dtype != dtype:
-        x = x.to(dtype)
-    x = x.contiguous()
     freqs = as_t(freqs)
     if freqs.dim() == 1:
         freqs = freqs.expand(B, nchan)
@@ -303,15 +309,24 @@ def _fit_batch(data_ports, model_ft_ri, init_params, Ps, freqs, errs,
     weights = torch.ones_like(errs) if weights is None else as_t(weights)
     nu_fits = (freqs.mean(dim=-1)[:, None].expand(B, 3) if nu_fits is None
                else as_t(nu_fits))
-    mr = as_t(model_ft_ri[0]).contiguous()
-    mi = as_t(model_ft_ri[1]).contiguous()
+    spectra = {}
+
+    def spectrum(d):
+        """The template's (mr, mi) on device d."""
+        if d not in spectra:
+            pair = model_ft_ri[d] if isinstance(model_ft_ri, dict) \
+                else model_ft_ri
+            spectra[d] = tuple(as_t(v, d).contiguous() for v in pair)
+        return spectra[d]
+
+    mr, mi = spectrum(dev)
     nh = mr.shape[-1]
     per_item = mr.dim() == 3
     if mr.shape != mi.shape or mr.shape[:-1] != ((B, nchan) if per_item
                                                  else (nchan,)):
         raise ValueError(f"model_ft_ri must be (nchan, nh) or (B, nchan, nh) "
                          f"pairs; got {tuple(mr.shape)}, {tuple(mi.shape)} "
-                         f"for data {tuple(x.shape)}")
+                         f"for data {tuple(data_ports.shape)}")
     if per_item and seed_phase:
         raise ValueError("a template per item needs seed_phase=False: the "
                          "brute seed's sums are taken by the setup kernel "
@@ -324,26 +339,61 @@ def _fit_batch(data_ports, model_ft_ri, init_params, Ps, freqs, errs,
     if seed_phase:
         hi_mask = (torch.arange(nchan, device=dev) >= nchan // 2).to(dtype)
         w_seed = torch.stack([w, w * hi_mask[None, :]], dim=-1).contiguous()
-    if per_item:
-        # the setup takes one template row per channel row: run it as ONE
-        # item of B*nchan channels (whatever B and nchan are, e.g. 4096
-        # single-channel items); its seed sums would then run over the
-        # whole batch, so a template per item comes with the caller's start
-        Gr, Gi, sd = (t.view(B, nchan, *t.shape[2:]) for t in fused_setup(
-            x.view(1, B * nchan, nbin), mr.view(B * nchan, nh),
-            mi.view(B * nchan, nh), f0_fact=bool(F0_FACT),
-            scale=None if scales is None else scales.view(1, B * nchan)))
-    elif seed_phase:
-        Gr, Gi, sd, gsr, gsi = fused_setup(x, mr, mi, f0_fact=bool(F0_FACT),
-                                           w=w_seed, scale=scales)
+
+    def setup_slab(d, c):
+        """The setup of channels c on device d: (Gr, Gi, sd[, gsr, gsi])
+        and the slab's M2."""
+        x = data_ports[:, c].to(d)
+        if scales is None and x.dtype != dtype:
+            x = x.to(dtype)
+        x = x.contiguous()
+        sc = None if scales is None else scales[:, c].to(d).contiguous()
+        mr_s, mi_s = (v[..., c, :].contiguous() for v in spectrum(d))
+        n = x.shape[1]
+        if per_item:
+            # the setup takes one template row per channel row: run it as
+            # ONE item of B*n channels (whatever B and n are, e.g. 4096
+            # single-channel items); its seed sums would then run over the
+            # whole batch, so a template per item comes with the caller's
+            # start
+            out = tuple(t.view(B, n, *t.shape[2:]) for t in fused_setup(
+                x.view(1, B * n, nbin), mr_s.view(B * n, nh),
+                mi_s.view(B * n, nh), f0_fact=bool(F0_FACT),
+                scale=None if sc is None else sc.view(1, B * n)))
+        else:
+            out = fused_setup(x, mr_s, mi_s, f0_fact=bool(F0_FACT),
+                              w=None if w_seed is None else
+                              w_seed[:, c].to(d).contiguous(), scale=sc)
+        return out, mr_s * mr_s + mi_s * mi_s
+
+    bounds = np.cumsum([0] + [len(c) for c in np.array_split(
+        np.arange(nchan), len(devices))])
+    slabs = []
+    for i, d in enumerate(devices):
+        with tally(None if tallies is None else tallies[i]):
+            slabs.append(setup_slab(d, slice(bounds[i], bounds[i + 1])))
+    outs, M2s = zip(*slabs)
+
+    sd = torch.cat([o[2].to(dev) for o in outs], dim=1)
+    if len(devices) == 1 and dev == outs[0][0].device:
+        Gr, Gi, M2 = outs[0][0], outs[0][1], M2s[0]
+        M2_lead = M2
     else:
-        Gr, Gi, sd = fused_setup(x, mr, mi, f0_fact=bool(F0_FACT),
-                                 scale=scales)
-    M2 = mr * mr + mi * mi
+        tl = tuple(tallies or [None] * len(devices))
+        Gr, Gi, M2 = (stats.ChanSlabs(tuple(p), tl) for p in (
+            [o[0] for o in outs], [o[1] for o in outs], M2s))
+        # the per-channel sums of M2 on the lead, from its own copy of
+        # the template: a card's reduction order depends on the shape, so
+        # sums over slabs would not be the single-device fit's bits
+        M2_lead = mr * mr + mi * mi
     init = as_t(init_params).clone()
+    if seed_phase:
+        # the band's seed sums, added over the slabs in channel order
+        gsr, gsi = (functools.reduce(torch.add, [o[j].to(dev) for o in outs])
+                    for j in (3, 4))
     if seed_phase and ff[1]:
         kvec = torch.arange(nh, dtype=dtype, device=dev)
-        wcurv = w * torch.sum(M2 * kvec * kvec, dim=-1)
+        wcurv = w * torch.sum(M2_lead * kvec * kvec, dim=-1)
         beta = freqs ** -2.0 - (nu_fits[:, 0] ** -2.0)[:, None]
         kdm = DCONST / Ps
         phi0, dm0 = _seed_phi_dm(gsr, gsi, wcurv, beta, kdm)
@@ -354,7 +404,7 @@ def _fit_batch(data_ports, model_ft_ri, init_params, Ps, freqs, errs,
     setup = stats.FitSetup(
         Gr=Gr, Gi=Gi, M2=M2, w=w, freqs=freqs, P=Ps, nu_DM=nu_fits[:, 0],
         nu_GM=nu_fits[:, 1], nu_tau=nu_fits[:, 2],
-        Sd=torch.sum(w * sd, dim=-1), S0=torch.sum(M2, dim=-1),
+        Sd=torch.sum(w * sd, dim=-1), S0=torch.sum(M2_lead, dim=-1),
         nbin=int(nbin), sd_chan=w * sd)
 
     def fgh(xp):

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pulseportraiture_tpu_torch.ops.launches import tally
 from pulseportraiture_tpu_torch.ops.transform import (phase_shifts,
                                                       phase_shifts_deriv)
 
@@ -39,6 +40,8 @@ SCAT_NAMES = ("C", "S", "Cp", "Rf", "S1", "Cpp", "If1", "Rg", "S2")
 class FitSetup(NamedTuple):
     """Per-fit constants; leading batch axes on every per-item field."""
 
+    # Gr, Gi and M2 may each be a ChanSlabs (channel-sharded fits): only
+    # _moments reads them
     Gr: torch.Tensor      # (..., nchan, nharm) Re[dFT conj(mFT)]
     Gi: torch.Tensor      # (..., nchan, nharm) Im[dFT conj(mFT)]
     M2: torch.Tensor      # (nchan, nharm) or (..., nchan, nharm) |mFT|^2
@@ -52,6 +55,32 @@ class FitSetup(NamedTuple):
     S0: torch.Tensor      # (nchan,) or (..., nchan) sum_k M2
     nbin: int = 0         # time-domain bins (for dof)
     sd_chan: torch.Tensor = None  # (..., nchan) w_n sum_k |dFT|^2
+
+
+class ChanSlabs(NamedTuple):
+    """A (..., nchan, nharm) spectrum held as channel slabs, each on its own
+    device, in channel order (the channel-sharded fit, parallel.mesh).
+    tallies: one launch tally per slab (ops.launches.tally), or Nones."""
+
+    parts: tuple
+    tallies: tuple
+
+
+def _per_slab(fn, rows, slabs):
+    """fn(*rows_i, *slabs_i) on each slab's device: the per-channel rows
+    (..., nchan), on the lead device, are cut at the slabs' widths and
+    sent to the slabs; the per-channel outputs come back and are joined
+    along channels on the lead device.  Only (..., nchan)-sized operands
+    cross devices, never a spectrum."""
+    lead = rows[0].device
+    outs, c0 = [], 0
+    for parts, into in zip(zip(*(s.parts for s in slabs)), slabs[0].tallies):
+        dev, n = parts[0].device, parts[0].shape[-2]
+        with tally(into):
+            out = fn(*(r[..., c0:c0 + n].to(dev) for r in rows), *parts)
+        outs.append([o.to(lead) for o in out])
+        c0 += n
+    return tuple(torch.cat(v, dim=-1) for v in zip(*outs))
 
 
 def setup_from_reference(fields, kvec=None, device="cpu",
@@ -161,7 +190,8 @@ def _moments(params, setup, scattering=False, log10_tau=True):
     S = w S0.  scattering=True: the 9 reductions C, S, Cp, Rf, S1, Cpp,
     If1, Rg, S2 through ops.moments.scattering_moments (S = w sum
     |B|^2 M2, no S0 shortcut), with taus and their derivatives.  Each
-    reduction is the CUDA kernel on the card, its plain twin on the CPU.
+    reduction is the CUDA kernel on the card, its plain twin on the CPU;
+    with channel slabs (ChanSlabs) each slab's on its own device.
     """
     from pulseportraiture_tpu_torch.ops.moments import (phase_moments,
                                                         scattering_moments)
@@ -173,12 +203,16 @@ def _moments(params, setup, scattering=False, log10_tau=True):
     w = setup.w
     phis_d = phase_shifts_deriv(setup.freqs, _scalar(setup.nu_DM),
                                 _scalar(setup.nu_GM), P)
+    sharded = isinstance(setup.Gr, ChanSlabs)
     if not scattering:
-        C, Cp, Cpp = phase_moments(phis, setup.Gr, setup.Gi)
+        C, Cp, Cpp = (_per_slab(phase_moments, (phis,), (setup.Gr, setup.Gi))
+                      if sharded else phase_moments(phis, setup.Gr, setup.Gi))
         return {"phis": phis, "C": w * C, "Cp": w * Cp, "Cpp": w * Cpp,
                 "S": w * setup.S0, "phis_d": phis_d}
     taus, dtau, d2tau = _taus_and_derivs(params, setup, log10_tau)
-    red = scattering_moments(phis, taus, setup.Gr, setup.Gi, setup.M2)
+    red = (_per_slab(scattering_moments, (phis, taus),
+                     (setup.Gr, setup.Gi, setup.M2)) if sharded else
+           scattering_moments(phis, taus, setup.Gr, setup.Gi, setup.M2))
     m = {"phis": phis, "taus": taus, "dtau": dtau, "d2tau": d2tau,
          "phis_d": phis_d}
     for name, v in zip(SCAT_NAMES, red):

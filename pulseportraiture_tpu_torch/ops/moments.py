@@ -55,6 +55,8 @@ import functools
 import torch
 
 from pulseportraiture_tpu_torch.fitters.stats import TWO_PI, _phase_trig
+from pulseportraiture_tpu_torch.ops.launches import counted
+from pulseportraiture_tpu_torch.ops.launches import stream as _stream
 
 # hi*k stays exact in f32 while |round(8192 p)| * k <= 2^24, i.e. k <= 4096
 MAX_NHARM = 4097
@@ -120,16 +122,17 @@ def _launch(phis, Gr, Gi):
                       device=Gr.device)
     if rows:
         lib = load_kernels()
-        stream = torch.cuda.current_stream(Gr.device).cuda_stream
-        err = lib.pp_phase_moments(
-            ctypes.c_void_p(phis.data_ptr()), ctypes.c_void_p(Gr.data_ptr()),
-            ctypes.c_void_p(Gi.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_longlong(rows), ctypes.c_int(nharm),
-            ctypes.c_void_p(stream))
+        with torch.cuda.device(Gr.device):
+            err = lib.pp_phase_moments(
+                ctypes.c_void_p(phis.data_ptr()),
+                ctypes.c_void_p(Gr.data_ptr()),
+                ctypes.c_void_p(Gi.data_ptr()),
+                ctypes.c_void_p(out.data_ptr()), ctypes.c_longlong(rows),
+                ctypes.c_int(nharm), _stream(Gr.device))
         if err != 0:
             raise RuntimeError(f"pp_phase_moments launch failed: CUDA error "
                                f"{err} ({lib.pp_error_string(err).decode()})")
-        phase_moments.launches += 1
+        counted(phase_moments)
     return out[0], out[1], out[2]
 
 
@@ -179,16 +182,17 @@ def _launch_merged(phis, g):
                       device=g.device)
     if rows:
         lib = load_kernels()
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = lib.pp_phase_moments_merged(
-            ctypes.c_void_p(phis.data_ptr()), ctypes.c_void_p(g.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), ctypes.c_longlong(rows),
-            ctypes.c_int(nharm), ctypes.c_void_p(stream))
+        with torch.cuda.device(g.device):
+            err = lib.pp_phase_moments_merged(
+                ctypes.c_void_p(phis.data_ptr()),
+                ctypes.c_void_p(g.data_ptr()),
+                ctypes.c_void_p(out.data_ptr()), ctypes.c_longlong(rows),
+                ctypes.c_int(nharm), _stream(g.device))
         if err != 0:
             raise RuntimeError(f"pp_phase_moments_merged launch failed: CUDA "
                                f"error {err} "
                                f"({lib.pp_error_string(err).decode()})")
-        phase_moments_merged.launches += 1
+        counted(phase_moments_merged)
     return out[0], out[1], out[2]
 
 
@@ -453,16 +457,17 @@ def _launch_scat(phis, taus, Gr, Gi, M2, geometry=None):
     if rows:
         lanes, rpb, tile = geometry or scat_launch_geometry(phis, M2)
         lib = load_kernels()
-        stream = torch.cuda.current_stream(Gr.device).cuda_stream
-        err = lib.pp_scat_moments(
-            ctypes.c_void_p(phis.data_ptr()), ctypes.c_void_p(taus.data_ptr()),
-            ctypes.c_void_p(Gr.data_ptr()), ctypes.c_void_p(Gi.data_ptr()),
-            ctypes.c_void_p(M2.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_longlong(rows), ctypes.c_longlong(m2_rows),
-            ctypes.c_int(nharm), ctypes.c_int(lanes), ctypes.c_int(rpb),
-            ctypes.c_longlong(tile), ctypes.c_void_p(stream))
+        with torch.cuda.device(Gr.device):
+            err = lib.pp_scat_moments(
+                ctypes.c_void_p(phis.data_ptr()),
+                ctypes.c_void_p(taus.data_ptr()),
+                ctypes.c_void_p(Gr.data_ptr()), ctypes.c_void_p(Gi.data_ptr()),
+                ctypes.c_void_p(M2.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+                ctypes.c_longlong(rows), ctypes.c_longlong(m2_rows),
+                ctypes.c_int(nharm), ctypes.c_int(lanes), ctypes.c_int(rpb),
+                ctypes.c_longlong(tile), _stream(Gr.device))
         if err != 0:
             raise RuntimeError(f"pp_scat_moments launch failed: CUDA error "
                                f"{err} ({lib.pp_error_string(err).decode()})")
-        scattering_moments.launches += 1
+        counted(scattering_moments)
     return tuple(out[j] for j in range(9))

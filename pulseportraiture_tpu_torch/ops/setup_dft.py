@@ -52,11 +52,16 @@ same harmonics.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
+
+from pulseportraiture_tpu_torch.ops.launches import counted
+from pulseportraiture_tpu_torch.ops.launches import stream as _stream
 
 _LANES = 128
 _BN = 64          # slab columns per kernel block (csrc/setup.cu BN)
@@ -223,11 +228,39 @@ def _fft_tables_np(nbin: int):
     return np.concatenate(runs)
 
 
-@functools.lru_cache(maxsize=4)
-def _fft_tables(nbin: int, device: str):
+# each device keeps its own most recent tables: several cards and several
+# nbin do not evict each other
+_PER_DEVICE = 4
+_device_tables = {}
+_tables_lock = threading.Lock()
+
+
+def _on_device(make, key, device):
+    """make(*key), a host array, as a float32 tensor on `device`, cached
+    per device (the _PER_DEVICE most recent keys of each)."""
+    with _tables_lock:            # the shards of a mesh run in threads
+        cache = _device_tables.setdefault(
+            (str(torch.device(device)), make.__name__),
+            collections.OrderedDict())
+        t = cache.get(key)
+        if t is None:
+            t = torch.from_numpy(np.ascontiguousarray(make(*key))).to(device)
+            cache[key] = t
+            while len(cache) > _PER_DEVICE:
+                cache.popitem(last=False)
+        else:
+            cache.move_to_end(key)
+        return t
+
+
+def _fft_table_pairs_np(nbin: int):
+    """_fft_tables_np(nbin) as float32 (re, im) pairs, the kernel's copy."""
     t = _fft_tables_np(nbin)
-    return torch.from_numpy(np.stack([t.real, t.imag], axis=-1).astype(
-        np.float32)).to(device)
+    return np.stack([t.real, t.imag], axis=-1).astype(np.float32)
+
+
+def _fft_tables(nbin: int, device):
+    return _on_device(_fft_table_pairs_np, (nbin,), device)
 
 
 def _stockham_fft(z, tables):
@@ -345,9 +378,8 @@ def _trig_slab_np(nbin: int, nh: int):
     return E.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=4)
-def _trig_slab(nbin: int, nh: int, device: str):
-    return torch.from_numpy(_trig_slab_np(nbin, nh)).to(device)
+def _trig_slab(nbin: int, nh: int, device):
+    return _on_device(_trig_slab_np, (nbin, nh), device)
 
 
 def _check(x, mr, mi, w, scale):
@@ -412,8 +444,7 @@ def _launched(err, lib, entry, route):
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err} "
                            f"({lib.pp_error_string(err).decode()})")
-    fused_setup.launches += 1
-    fused_setup.routes[route] += 1
+    counted(fused_setup, route)
 
 
 def _launch_gemm(x, mr, mi, f0_fact, w, scale):
@@ -423,7 +454,7 @@ def _launch_gemm(x, mr, mi, f0_fact, w, scale):
     B, nchan, nbin = x.shape
     nh = mr.shape[-1]
     kseed = 0 if w is None else w.shape[-1]
-    slab = _trig_slab(nbin, nh, str(x.device))
+    slab = _trig_slab(nbin, nh, x.device)
     ncolp = slab.shape[1]
     out = _outputs(x, nh, kseed)
     part = None
@@ -432,14 +463,15 @@ def _launch_gemm(x, mr, mi, f0_fact, w, scale):
                            dtype=torch.float32, device=x.device)
     if B * nchan:
         lib = load_kernels()
-        err = lib.pp_fused_setup(
-            _ptr(x), ctypes.c_int(int(x.dtype == torch.int16)), _ptr(slab),
-            ctypes.c_int(ncolp), _ptr(mr), _ptr(mi), _ptr(scale), _ptr(w),
-            ctypes.c_int(kseed), *map(_ptr, out[:3]), _ptr(part),
-            *map(_ptr, out[3:] or (None, None)), ctypes.c_int(B),
-            ctypes.c_int(nchan), ctypes.c_int(nbin), ctypes.c_int(nh),
-            ctypes.c_int(int(f0_fact)),
-            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        with torch.cuda.device(x.device):
+            err = lib.pp_fused_setup(
+                _ptr(x), ctypes.c_int(int(x.dtype == torch.int16)),
+                _ptr(slab), ctypes.c_int(ncolp), _ptr(mr), _ptr(mi),
+                _ptr(scale), _ptr(w), ctypes.c_int(kseed),
+                *map(_ptr, out[:3]), _ptr(part),
+                *map(_ptr, out[3:] or (None, None)), ctypes.c_int(B),
+                ctypes.c_int(nchan), ctypes.c_int(nbin), ctypes.c_int(nh),
+                ctypes.c_int(int(f0_fact)), _stream(x.device))
         _launched(err, lib, "pp_fused_setup", "gemm")
     return tuple(out)
 
@@ -467,7 +499,7 @@ def _launch_fft(x, mr, mi, f0_fact, w, scale, rows=None):
                          "boundary (an offset view does not)")
     if B > 65535:
         raise ValueError(f"fused_setup kernel: B={B} above 65535 items")
-    tw = _fft_tables(nbin, str(x.device))
+    tw = _fft_tables(nbin, x.device)
     out = _outputs(x, nh, kseed)
     part = None
     if kseed:
@@ -475,13 +507,16 @@ def _launch_fft(x, mr, mi, f0_fact, w, scale, rows=None):
                            dtype=torch.float32, device=x.device)
     if B * nchan:
         lib = load_kernels()
-        err = lib.pp_fused_setup_fft(
-            _ptr(x), ctypes.c_int(int(x.dtype == torch.int16)), _ptr(tw),
-            ctypes.c_int(tw.shape[0]), _ptr(mr), _ptr(mi), _ptr(scale),
-            _ptr(w), ctypes.c_int(kseed), *map(_ptr, out[:3]), _ptr(part),
-            *map(_ptr, out[3:] or (None, None)), ctypes.c_int(B),
-            ctypes.c_int(nchan), ctypes.c_int(nbin), ctypes.c_int(nh),
-            ctypes.c_int(int(f0_fact)), ctypes.c_int(rows),
-            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        # with x's device current: the entry sets the kernel's shared
+        # memory attribute (per-device state) and launches in its context
+        with torch.cuda.device(x.device):
+            err = lib.pp_fused_setup_fft(
+                _ptr(x), ctypes.c_int(int(x.dtype == torch.int16)), _ptr(tw),
+                ctypes.c_int(tw.shape[0]), _ptr(mr), _ptr(mi), _ptr(scale),
+                _ptr(w), ctypes.c_int(kseed), *map(_ptr, out[:3]), _ptr(part),
+                *map(_ptr, out[3:] or (None, None)), ctypes.c_int(B),
+                ctypes.c_int(nchan), ctypes.c_int(nbin), ctypes.c_int(nh),
+                ctypes.c_int(int(f0_fact)), ctypes.c_int(rows),
+                _stream(x.device))
         _launched(err, lib, "pp_fused_setup_fft", "fft")
     return tuple(out)

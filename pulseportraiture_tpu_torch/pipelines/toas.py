@@ -22,8 +22,11 @@ Port of pulseportraiture_tpu.pipelines.toas.GetTOAs:
   get_psrchive_TOAs    per-channel TOAs by the six pat-style estimators
                        (fitters.arrival_time).
   get_channels_to_zap  channels to zap from the stored fits (show_fit
-                       rebuilds one fitted subint; its plots are not
-                       ported).
+                       rebuilds one fitted subint and draws it).
+
+get_TOAs(mesh=...) fits the batched chunks over several devices
+(parallel.mesh); the plots (show_fit, show_plot, get_channels_to_zap's
+show) need matplotlib, which is imported only when one is drawn.
 
 Templates: a FITS archive, a spline model (.spl) or a Gaussian model
 (.gmodel).  Reference: pptoas.py:150-1206.
@@ -31,6 +34,7 @@ Templates: a FITS archive, a spline model (.spl) or a Gaussian model
 
 from __future__ import annotations
 
+import collections
 import itertools
 import time
 
@@ -58,6 +62,8 @@ from pulseportraiture_tpu_torch.ops.scattering import (
     scattering_portrait_FT_np, scattering_times)
 from pulseportraiture_tpu_torch.ops.setup_dft import (band_cap_model_ft,
                                                       cap_nharm)
+from pulseportraiture_tpu_torch.parallel.mesh import \
+    fit_portrait_full_sharded
 
 _MAX_CHUNK = 64
 _MAX_TEMPLATES = 8     # cached template evaluations kept at once
@@ -65,15 +71,21 @@ _MAX_TEMPLATES = 8     # cached template evaluations kept at once
 _DEFAULT_SCAT_GUESS = (1e-5, 1500.0, -4.0)
 
 
-def _auto_fit_chunk(nchan, nbin, nh, x_itemsize, f_itemsize, device):
-    """Subints per batched fit: what fits 60% of the card's free memory
-    (torch.cuda.mem_get_info), at most 64.  Per item the card holds the
+def _auto_fit_chunk(nchan, nbin, nh, x_itemsize, f_itemsize, grid,
+                    n_batch=1):
+    """Subints per batched fit: what fits 60% of each card's free memory
+    (torch.cuda.mem_get_info), at most 64 a batch shard.  grid: the
+    devices a chunk is spread over, one entry a share (a mesh's cells; a
+    device listed twice holds two shares).  Per item the cards hold the
     data portrait, the persistent Gr/Gi and the setup's transients."""
-    if device.type != "cuda":
-        return _MAX_CHUNK
-    per_item = nchan * nbin * x_itemsize + 6 * f_itemsize * nchan * nh
-    free, _ = torch.cuda.mem_get_info(device)
-    return int(max(1, min(_MAX_CHUNK, int(0.6 * free) // per_item)))
+    per_share = (nchan * nbin * x_itemsize + 6 * f_itemsize * nchan * nh) \
+        / len(grid)
+    chunk = _MAX_CHUNK * n_batch
+    for dev, shares in collections.Counter(grid).items():
+        if dev.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(dev)
+            chunk = min(chunk, int(0.6 * free / (per_share * shares)))
+    return max(1, chunk)
 
 
 def _resolve_datafiles(datafiles):
@@ -247,7 +259,7 @@ class GetTOAs:
                  fix_alpha=True, print_phase=False, print_flux=False,
                  print_parangle=False, add_instrumental_response=False,
                  addtnl_toa_flags=None, method="trust-ncg", bounds=None,
-                 nu_fits=None, quiet=None, mesh=None):
+                 nu_fits=None, show_plot=False, quiet=None, mesh=None):
         """Fit every subint of every archive; fills TOA_list and the
         per-archive lists.
 
@@ -265,12 +277,15 @@ class GetTOAs:
         response (the channels' dispersive smearing at ird["DM"], and
         ird["wids"] of ird["irf_types"]).  method and bounds are accepted
         for the reference's signature and change nothing, as in the JAX
-        package.  Reference: pptoas.py:150-743.
+        package.  show_plot: show each fitted subint's residual plot
+        (show_fit) once its archive is assembled; needs matplotlib.
+        mesh: a parallel.mesh.Mesh; the batched chunks are then fitted by
+        parallel.mesh.fit_portrait_full_sharded, subints sharded over its
+        rows and channels over each row's devices, each chunk packed once
+        per batch shard (the template is kept on every device of the
+        mesh); the per-subint route stays on this GetTOAs' device.
+        Reference: pptoas.py:150-743.
         """
-        if mesh is not None:
-            raise NotImplementedError("multi-device sharding (mesh) is not "
-                                      "ported: ROADMAP queue 1, "
-                                      "multi-device")
         batchable_ok = nu_refs is None
         quiet = self.quiet if quiet is None else quiet
         datafiles = [datafile] if datafile is not None else self.datafiles
@@ -288,7 +303,7 @@ class GetTOAs:
         f32 = self.dtype == torch.float32
         np_dtype = np.float32 if f32 else np.float64
         timing = {"load_s": 0.0, "fit_s": 0.0, "assemble_s": 0.0,
-                  "wall_s": 0.0}
+                  "wall_s": 0.0, "batched_chunks": 0}
         self.fit_timing = timing
         start_all = time.time()
         model_cache = {}
@@ -347,7 +362,7 @@ class GetTOAs:
                     mr, mi, mharm = _fit_spectrum(model_rot, data.nbin, f32)
                     entry = dict(key=next(template_ids), model=model_rot,
                                  nu_anchor=nu_anchor, P_model=float(P),
-                                 mft=(mr, mi), mharm=mharm, dev=None)
+                                 mft=(mr, mi), mharm=mharm, dev={})
                     model_cache[mkey] = entry
                 freqsx = freqs[okc]
                 if nu_fits is not None:
@@ -436,7 +451,7 @@ class GetTOAs:
                 nh = len(items[0][1]["entry"]["mft"][0][0])
                 chunk = _auto_fit_chunk(shape[0], shape[1], nh,
                                         np.dtype(np_dtype).itemsize,
-                                        4 if f32 else 8, self.device)
+                                        4 if f32 else 8, [self.device])
                 for i in range(0, len(items), chunk):
                     fit_chunk(items[i:i + chunk], sub_flags, batch=False)
 
@@ -446,32 +461,39 @@ class GetTOAs:
             unfitted tau kept in the model when fit_scat."""
             t0 = time.time()
             entry = items[0][1]["entry"]
-            ports = np.stack([p.pop("port") for _, p in items])
-            if entry["dev"] is None:
-                entry["dev"] = tuple(
-                    torch.as_tensor(np.asarray(a), dtype=self.dtype,
-                                    device=self.device)
-                    for a in entry["mft"])
-            x = torch.from_numpy(ports).to(self.device)
-            del ports
+            x = torch.from_numpy(np.stack([p.pop("port") for _, p in items]))
             scales = None
             if items[0][1]["scale"] is not None:
-                scales = dev(np.stack([p.pop("scale") for _, p in items]),
-                             torch.float32)
-            packed = fit_portrait_full_batch_packed(
-                x, entry["dev"], dev(np.stack([p["init"] for _, p in items])),
-                dev([p["P"] for _, p in items]),
-                dev(np.stack([p["freqs"] for _, p in items])),
-                dev(np.stack([p["errs"] for _, p in items])),
-                nu_fits=dev([[p["nu_fit"]] * 3 for _, p in items]),
-                fit_flags=flags, log10_tau=log10_tau, scales=scales,
-                dtype=self.dtype, seed_phase=batch,
-                nu_outs=None if batch else nu_outs_of(items),
-                scattering=None if batch else bool(fit_scat))
-            # one transfer per chunk: the result packed on the device
+                scales = torch.from_numpy(np.stack(
+                    [p.pop("scale") for _, p in items]).astype(np.float32))
+            ops = (np.stack([p["init"] for _, p in items]),
+                   np.array([p["P"] for _, p in items]),
+                   np.stack([p["freqs"] for _, p in items]),
+                   np.stack([p["errs"] for _, p in items]))
+            nu_fits_b = np.array([[p["nu_fit"]] * 3 for _, p in items])
+            if mesh is not None and batch:
+                # host operands: each shard's slabs go to their devices
+                packed = fit_portrait_full_sharded(
+                    mesh, x, self._template_on(entry, mesh.device_list),
+                    *ops, nu_fits=nu_fits_b, fit_flags=flags,
+                    log10_tau=log10_tau, scales=scales, dtype=self.dtype,
+                    seed_phase=True, packed=True)
+            else:
+                packed = fit_portrait_full_batch_packed(
+                    x.to(self.device),
+                    self._template_on(entry, [self.device])[self.device],
+                    *map(dev, ops), nu_fits=dev(nu_fits_b),
+                    fit_flags=flags, log10_tau=log10_tau,
+                    scales=None if scales is None else scales.to(self.device),
+                    dtype=self.dtype, seed_phase=batch,
+                    nu_outs=None if batch else nu_outs_of(items),
+                    scattering=None if batch else bool(fit_scat))
+            # one transfer per chunk (per batch shard on a mesh): the
+            # result packed on the device
             host = unpack_result(packed, x.shape[1])
             dur = (time.time() - t0) / len(items)
             timing["fit_s"] += time.time() - t0
+            timing["batched_chunks"] += int(batch)
             for i, (iarch, p) in enumerate(items):
                 results[(iarch, p["isub"])] = (
                     type(host)(*[v[i] for v in host]), dur)
@@ -494,8 +516,11 @@ class GetTOAs:
                 return
             shape, x_itemsize = key[0], np.dtype(key[1]).itemsize
             nh = len(items[0][1]["entry"]["mft"][0][0])
-            chunk = _auto_fit_chunk(shape[0], shape[1], nh, x_itemsize,
-                                    4 if f32 else 8, self.device)
+            chunk = _auto_fit_chunk(
+                shape[0], shape[1], nh, x_itemsize, 4 if f32 else 8,
+                [self.device] if mesh is None else
+                [d for row in mesh.devices for d in row],
+                1 if mesh is None else mesh.shape["batch"])
             while len(items) >= chunk or (final and items):
                 fit_chunk(items[:chunk])
                 del items[:chunk]
@@ -514,6 +539,10 @@ class GetTOAs:
                                        print_phase, print_flux,
                                        print_parangle, addtnl_toa_flags,
                                        timing, nu_refs is not None)
+                if show_plot:
+                    for isub in self.ok_isubs[-1]:
+                        self.show_fit(datafile=job["df"], isub=isub,
+                                      show=True)
                 for p in job["preps"]:
                     del results[(next_assemble, p["isub"])]
                 jobs[next_assemble] = None      # assembled: release it
@@ -719,16 +748,14 @@ class GetTOAs:
         timing["assemble_s"] += time.time() - t0
 
     def show_fit(self, datafile=None, isub=0, rotate=True, savefig=False,
-                 show=False, return_fit=True, quiet=None):
-        """One fitted subint beside its fitted model: (port, scaled_model,
-        phases, freqs, errs), host numpy.  Reloads the archive, rebuilds
-        the scattered and scaled model at the subint's frequencies and
-        rotates the data by the fitted (phi, DM, GM) on this GetTOAs'
-        device.  The plots (show, savefig) are not ported.  Reference:
-        pptoas.py:1287-1419."""
-        if show or savefig:
-            raise NotImplementedError("plotting is not ported: ROADMAP "
-                                      "queue 1, viz and profiling")
+                 show=True, return_fit=False, quiet=None):
+        """Residual diagnostic for one fitted subint: reloads the archive,
+        rebuilds the scattered and scaled model at the subint's
+        frequencies, rotates the data by the fitted (phi, DM, GM) on this
+        GetTOAs' device, and draws data, model and residual panels
+        (viz.show_residual_plot; show and savefig need matplotlib).
+        return_fit: return (port, scaled_model, phases, freqs, errs), host
+        numpy.  Reference: pptoas.py:1287-1419."""
         datafile = datafile or self.order[0]
         iarch = self.order.index(datafile)
         ii = list(self.ok_isubs[iarch]).index(isub)
@@ -758,6 +785,12 @@ class GetTOAs:
                 P=P, device=self.device).cpu().numpy()
         errs = np.where(data.weights[isub] > 0, data.noise_stds[isub, 0],
                         0.0)
+        if show or savefig:
+            from pulseportraiture_tpu_torch.viz import show_residual_plot
+            show_residual_plot(port, scaled_model, phases=data.phases,
+                               freqs=freqs, errs=errs,
+                               title=f"{datafile} subint {isub}",
+                               savefig=savefig, show=show)
         if return_fit:
             return port, scaled_model, data.phases, freqs, errs
         return None
@@ -772,11 +805,10 @@ class GetTOAs:
         The fast path reads the per-channel reduced chi2 that the fit
         computed on the device (each chunk's result left the card in one
         transfer); a subint without it goes through show_fit and the
-        time domain.  Fills and returns self.zap_channels.  Reference:
+        time domain.  Fills and returns self.zap_channels.
+        show: draw each subint with channels to zap, rotated by its fit,
+        titled with them (viz.show_portrait; needs matplotlib).  Reference:
         pptoas.py:1208-1285."""
-        if show:
-            raise NotImplementedError("plotting is not ported: ROADMAP "
-                                      "queue 1, viz and profiling")
         self.zap_channels = []
         self.channel_red_chi2s = []
         for iarch, df in enumerate(self.order):
@@ -818,6 +850,13 @@ class GetTOAs:
                 bad = [int(c) for c in okc[bad]]
                 arch_rchi2s.append(rchi2s)
                 arch_zaps.append(bad)
+                if show and bad:
+                    from pulseportraiture_tpu_torch.viz import show_portrait
+                    port = self.show_fit(datafile=df, isub=isub, rotate=True,
+                                         show=False, return_fit=True,
+                                         quiet=True)[0]
+                    show_portrait(port, title=f"{df} subint {isub} "
+                                  f"bad chans: {bad}")
             self.zap_channels.append(arch_zaps)
             self.channel_red_chi2s.append(arch_rchi2s)
         return self.zap_channels
@@ -832,6 +871,16 @@ class GetTOAs:
         except (OSError, ValueError, KeyError, EOFError) as exc:
             print(f"Skipping {df}: could not load ({exc})")
             return None
+
+    def _template_on(self, entry, devices):
+        """A cached template's spectrum {device: (mr, mi)} on each of
+        `devices`, uploaded once per device."""
+        for d in devices:
+            if d not in entry["dev"]:
+                entry["dev"][d] = tuple(
+                    torch.as_tensor(np.asarray(a), dtype=self.dtype, device=d)
+                    for a in entry["mft"])
+        return {d: entry["dev"][d] for d in devices}
 
     def _dev(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype or self.dtype,

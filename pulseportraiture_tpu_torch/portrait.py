@@ -27,9 +27,6 @@ from pulseportraiture_tpu_torch.config import (DEFAULT_MODEL_CODE,
                                                SCATTERING_ALPHA)
 from pulseportraiture_tpu_torch.io.archive import load_data, unload_new_archive
 
-_NOT_PORTED = "plotting is not ported: ROADMAP queue 1, viz and profiling"
-
-
 def _is_metafile(path):
     with open(path, "rb") as f:
         magic = f.read(6)
@@ -670,13 +667,32 @@ class DataPortrait:
                     quiet=quiet)
 
     def show_data_portrait(self, **kwargs):
-        raise NotImplementedError(_NOT_PORTED)
+        """The portrait image (viz.show_portrait; needs matplotlib)."""
+        from pulseportraiture_tpu_torch.viz import show_portrait
+        show_portrait(self.port, phases=self.phases,
+                      freqs=self.freqs[0], **kwargs)
 
     def show_model_fit(self, **kwargs):
-        raise NotImplementedError(_NOT_PORTED)
+        """Data, model and residual panels (viz.show_residual_plot)."""
+        from pulseportraiture_tpu_torch.viz import show_residual_plot
+        show_residual_plot(self.port, self.model_masked,
+                           phases=self.phases, freqs=self.freqs[0],
+                           **kwargs)
 
     def show_eigenprofiles(self, **kwargs):
-        raise NotImplementedError(_NOT_PORTED)
+        """Mean profile + significant eigenprofiles (ppspline.py:234-249)."""
+        from pulseportraiture_tpu_torch.viz import show_eigenprofiles
+        eigvec = getattr(self, "smooth_eigvec", None)
+        if eigvec is None:
+            eigvec = self.eigvec
+        cols = self.ieig if len(getattr(self, "ieig", [])) else []
+        show_eigenprofiles(np.asarray(eigvec)[:, cols],
+                           mean_prof=getattr(self, "smooth_mean_prof",
+                                             self.mean_prof), **kwargs)
 
     def show_spline_curve_projections(self, **kwargs):
-        raise NotImplementedError(_NOT_PORTED)
+        """Spline-curve projections vs frequency (ppspline.py:251-276)."""
+        from pulseportraiture_tpu_torch.viz import \
+            show_spline_curve_projections
+        show_spline_curve_projections(self.proj_port, self.freqsxs[0],
+                                      tck=self.tck, **kwargs)

@@ -55,7 +55,9 @@ def test_the_scan_sees_the_port():
     rel = {os.path.relpath(f, REPO) for f in files}
     for name in ("models/wavelet.py", "models/spline.py", "portrait.py",
                  "fitters/powlaw.py", "sim/fake.py", "pipelines/align.py",
-                 "cli/ppalign.py", "cli/ppspline.py", "cli/ppgauss.py"):
+                 "cli/ppalign.py", "cli/ppspline.py", "cli/ppgauss.py",
+                 "parallel/mesh.py", "viz.py", "profiling.py",
+                 "ops/launches.py"):
         assert f"pulseportraiture_tpu_torch/{name}" in rel
 
 
@@ -101,3 +103,39 @@ def test_builders_run_without_the_jax_package(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[-2:] == ["4", "0"], out.stdout
+
+
+def test_port_imports_without_matplotlib():
+    """In a process where matplotlib cannot be imported, every module of
+    the port imports, and a plot asked for raises an ImportError that
+    names matplotlib (it is not skipped)."""
+    code = (
+        "import importlib, os, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] == 'matplotlib':\n"
+        "            raise ImportError('No module named ' + repr(name))\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "root = os.path.join(sys.argv[1], 'pulseportraiture_tpu_torch')\n"
+        "n = 0\n"
+        "for d, _, files in os.walk(root):\n"
+        "    for f in sorted(files):\n"
+        "        if f.endswith('.py'):\n"
+        "            rel = os.path.relpath(os.path.join(d, f[:-3]),\n"
+        "                                  sys.argv[1])\n"
+        "            importlib.import_module(rel.replace(os.sep, '.')\n"
+        "                                    .replace('.__init__', ''))\n"
+        "            n += 1\n"
+        "from pulseportraiture_tpu_torch import viz\n"
+        "import numpy as np\n"
+        "try:\n"
+        "    viz.show_portrait(np.zeros((2, 8)), show=False)\n"
+        "except ImportError as exc:\n"
+        "    print(n, 'matplotlib' in str(exc))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code, REPO], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    n, named = out.stdout.split()
+    assert int(n) > 50 and named == "True", out.stdout

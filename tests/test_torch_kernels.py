@@ -619,3 +619,45 @@ def test_align_on_card_matches_cpu_float64(cuda, tmp_path):
         assert abs(x["phi"] - y["phi"]) <= 1e-6 * y["phi_err"]
         assert abs(x["DM"] - y["DM"]) <= 1e-6 * y["DM_err"]
     assert np.max(np.abs(a - b)) <= 2.0 ** -23 * np.max(np.abs(b))
+
+
+@pytest.mark.cuda
+def test_sharded_fit_on_one_card_matches_the_unsharded_fit(cuda):
+    """Meshes laid over the one card (parallel.mesh).  Channel slabs
+    (1 x 2) with seed_phase=False: bitwise the unsharded card fit (the
+    setup and phase-moments kernels compute each row on its own, and the
+    per-channel template sums are taken on the lead).  A 2 x 2 mesh (two
+    batch shards in threads): within 0.01 of the errors, with and without
+    the seed, not bitwise: torch's CUDA reductions over the channels
+    choose their order by the number of items.  Every shard launched the
+    setup and phase-moments kernels.  (A launch on a second card is not
+    shown by one card.)"""
+    from pulseportraiture_tpu_torch.fitters.portrait import (
+        fit_portrait_full_batch, template_spectrum)
+    from pulseportraiture_tpu_torch.parallel.mesh import (
+        fit_portrait_full_sharded, make_mesh)
+
+    rng = np.random.default_rng(8)
+    B, nchan, nbin = 6, 96, 512
+    model, data = _portrait(rng, B, nchan, nbin)
+    mft = template_spectrum(model)
+    t = dict(dtype=torch.float32, device=cuda)
+    args = (torch.from_numpy(data).to(cuda), mft, torch.zeros((B, 5), **t),
+            torch.full((B,), 0.003, **t),
+            torch.as_tensor(np.linspace(1100.0, 1900.0, nchan), **t),
+            torch.full((B, nchan), 0.1, **t))
+    slabs = make_mesh(1, 2, devices=["cuda:0"] * 2)
+    want = fit_portrait_full_batch(*args, seed_phase=False)
+    got = fit_portrait_full_sharded(slabs, *args, seed_phase=False)
+    for name, a, b in zip(want._fields, got, want):
+        assert torch.equal(a, b), name
+    mesh = make_mesh(2, 2, devices=["cuda:0"] * 4)
+    for seed in (False, True):
+        want = fit_portrait_full_batch(*args, seed_phase=seed)
+        got = fit_portrait_full_sharded(mesh, *args, seed_phase=seed)
+        z = ((got.params - want.params).abs() / want.param_errs)[:, :2]
+        assert float(z.max()) < 1e-2, (seed, z)
+    for m, n in ((slabs, 1), (mesh, 2)):
+        for shard, counts in m.launches.items():
+            assert counts["fused_setup"] == n and \
+                counts["phase_moments"] > 0, (shard, counts)

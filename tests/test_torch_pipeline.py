@@ -224,14 +224,23 @@ def test_cuda_device_without_a_card_raises(ws):
 
 
 def test_unported_options_raise(ws):
-    """What the port still refuses: mesh sharding, naming its ROADMAP
-    item.  GM, with or without fit_scat, no longer raises: its TOAs match
-    the JAX package's (within 1 ns, DM and GM within 1e-6 sigma), as do
-    user output references and .gmodel templates."""
+    """The options the port once refused now run: mesh sharding gives the
+    unsharded run's TOAs (bitwise here: seed sums aside, per-row results
+    do not depend on the split; tests/test_torch_mesh.py holds it to
+    1e-10 s).  GM, with or without fit_scat: its TOAs match the JAX
+    package's (within 1 ns, DM and GM within 1e-6 sigma), as do user
+    output references and .gmodel templates."""
+    from pulseportraiture_tpu_torch.parallel.mesh import make_mesh
     gt = toas.GetTOAs(ws["files"][:1], ws["fits"], device="cpu",
                       dtype=torch.float64, quiet=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gt.get_TOAs(quiet=True, mesh=object())
+    gt.get_TOAs(quiet=True)
+    unsharded = gt.TOA_list
+    gt.TOA_list = []
+    gt.get_TOAs(quiet=True, mesh=make_mesh(2, 2, devices=["cpu"] * 4))
+    assert len(gt.TOA_list) == len(unsharded) == 2
+    for a, b in zip(gt.TOA_list, unsharded):
+        assert abs(mjd_diff_s(a.MJD, b.MJD)) < 1e-10
+        assert abs(a.DM - b.DM) < 1e-9
     for kw in (dict(fit_GM=True), dict(fit_GM=True, fit_scat=True)):
         want = JGetTOAs(ws["files"][:1], ws["fits"], quiet=True)
         want.get_TOAs(quiet=True, **kw)

@@ -195,12 +195,21 @@ def test_make_gaussian_model_matches_jax(ws, kind):
     assert 0 <= td.timing["lm_rejected"] < td.timing["lm_iters"]
 
 
-def test_plots_are_not_ported(ws):
+def test_plots_are_not_ported(ws, tmp_path):
+    """The plots are ported now: each show_* method draws and writes its
+    file (tests/test_torch_viz.py holds the drawn arrays against the JAX
+    package's)."""
+    import matplotlib
+    matplotlib.use("Agg")
     td = DataPortrait(ws["avg"], quiet=True, device="cpu")
-    for show in (td.show_data_portrait, td.show_model_fit,
-                 td.show_eigenprofiles, td.show_spline_curve_projections):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            show()
+    td.normalize_portrait("prof")
+    td.make_spline_model(max_ncomp=3, smooth=False, snr_cutoff=50.0,
+                         quiet=True)
+    for i, show in enumerate((td.show_data_portrait, td.show_model_fit,
+                              td.show_eigenprofiles,
+                              td.show_spline_curve_projections)):
+        show(savefig=str(tmp_path / f"{i}.png"), show=False)
+        assert (tmp_path / f"{i}.png").stat().st_size > 1000
 
 
 def test_cuda_without_a_card_raises(ws):
@@ -239,5 +248,9 @@ def test_ppspline_and_ppgauss_cli(ws):
     jp = jread_model(str(p / "cli-port.gmodel"))[4]
     tp = read_model(str(p / "cli-jax.gmodel"))[4]
     assert np.max(np.abs(jp - tp)) <= 2e-8
-    with pytest.raises(NotImplementedError):
-        ppspline.main(["-d", ws["avg"], "--plots", "--device", "cpu"])
+    pre = str(p / "cli-plots")
+    assert ppspline.main(["-d", ws["avg"], "-o", str(p / "plots.spl"),
+                          "-n", "3", "-S", "50", "--saveplots", pre,
+                          "--device", "cpu", "--quiet"]) == 0
+    for suffix in ("_eig.png", "_spl.png"):
+        assert (p / f"cli-plots{suffix}").stat().st_size > 1000

@@ -13,6 +13,8 @@ show_fit itself, zap_archive's written weights and the ppzap tool, each
 against the JAX package: the same channel lists and weights.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -82,8 +84,18 @@ def test_channels_to_zap_match_jax(ws, noisy, path):
     tol = 1e-6 if path == "fit" else 1e-3
     for a, b in zip(got.channel_red_chi2s[0], want.channel_red_chi2s[0]):
         assert rel_err(np.array(a), np.array(b)) < tol
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        got.get_channels_to_zap(show=True)
+    # show=True draws the subints with channels to zap, same lists
+    import matplotlib
+    matplotlib.use("Agg")
+    from matplotlib import pyplot as plt
+    shown = []
+    real = plt.show
+    plt.show = lambda *a, **k: shown.append(1)
+    try:
+        assert got.get_channels_to_zap(show=True) == zg
+    finally:
+        plt.show = real
+    assert len(shown) == sum(bool(z) for z in zg[0])
 
 
 def test_show_fit_matches_jax(ws, noisy):
@@ -95,8 +107,11 @@ def test_show_fit_matches_jax(ws, noisy):
         # rotates the float32 samples by thousands of turns in float32
         for x, y, tol in zip(a, b, (1e-3, 1e-9, 0.0, 0.0, 0.0)):
             assert rel_err(x, y) <= tol
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        got.show_fit(isub=0, show=True)
+    import matplotlib
+    matplotlib.use("Agg")
+    png = ws["path"] / "show_fit.png"
+    assert got.show_fit(isub=0, savefig=str(png), show=False) is None
+    assert png.stat().st_size > 1000
 
 
 @pytest.mark.parametrize("per_subint,normalize", [(False, False),
@@ -137,5 +152,7 @@ def test_ppzap_matches_jax(ws, noisy, model, capsys):
     assert lines == capsys.readouterr().out.splitlines()
     assert len(lines) >= len(RFI)
     if model:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ppzap.main(common + ["--showplot", "--device", "cpu"])
+        hist = str(ws["path"] / "rchi2.png")
+        assert ppzap.main(common + ["--saveplot", hist, "-o", a,
+                                    "--device", "cpu"]) == 0
+        assert os.path.getsize(hist) > 1000
