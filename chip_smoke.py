@@ -15,10 +15,14 @@ parallel), then:
      cuBLAS float32 DFT-as-GEMM's, below a TF32-input GEMM's, and it is
      timed beside that GEMM and beside torch.fft.rfft + cross-spectrum;
      the setup also as the per-item route calls it, one item of 4096 rows
-     without seed weights, nh=128 and 1025; and the setup's SGEMM route
-     (csrc/setup.cu) at a width the FFT route does not take, 4096
-     channels x 1280 bins, capped and full band, timed beside the same
-     two library calls;
+     without seed weights, nh=128 and 1025; the FFT route's mixed-radix
+     plans at 4096 channels x 768, 1280, 1536 and 3840 bins (odd factors
+     3, 5, 3, 15), B=4, K=2, capped and full band, float32 and int16 +
+     scale: the same checks, the same bits from a second call, timed
+     beside the same library calls and csrc/setup.cu on the same inputs;
+     and the setup's SGEMM route (csrc/setup.cu) at a width the FFT route
+     does not take, 4096 channels x 1000 bins, full band (nh=501) and a
+     prefix (nh=125), timed beside the same two library calls;
   3. the scattering-moments kernel against its float64 twin at B=32,
      nh=128 and 1025, phases in [-3, 3] turns, taus around
      8e-3 (nu/1500)^-4 rot over two decades: each of the 9 sums within
@@ -30,7 +34,8 @@ parallel), then:
      band, on bench.py's data recipe generated on the card from a seeded
      torch.Generator: every item converged, |phi - phi_inj| <= 5 sigma,
      and the card's float32 kernel route agrees with the float64 twin
-     route on the CPU within 0.01 sigma on a subset; prints fits/s;
+     route on the CPU within 0.01 sigma on a subset; prints fits/s; then
+     the same at 4096 x 1536 (the radix-3 plan);
   5. the scattering fit (phi, DM, tau, alpha), log10 tau, at 4096 x 2048,
      B=32, capped and full band, on scripts/tpu_scaling.py's --scat recipe
      generated on the card: every item converged, phi, DM, log10 tau at
@@ -40,7 +45,7 @@ parallel), then:
   6. runs the pipeline a user runs (GetTOAs(..., device="cuda")) on two
      int16 PSRFITS archives x 8 subints at 4096 x 2048 written here, with
      a float32 noiseless template: TOA count and injected dDM within 3
-     sigma;
+     sigma; then one such archive at 4096 x 1536;
   7. the same with get_TOAs(fit_scat=True) on two scattered archives x 4
      subints (the template unscattered): TOA count, scat_time within 3
      sigma of the injection at scat_ref_freq, injected dDM within 3 sigma;
@@ -118,8 +123,8 @@ ptxas's registers and spills are printed for every kernel; a spill in the
 setup FFT or the scattering kernel fails the run.  Launch counts are
 reset before each pipeline run (the main paths) and
 read after it; every kernel of that path must have launched there, and
-every setup launch of a path (all run at 2048 bins) must have taken the
-FFT route.  The
+every setup launch of a path (at 2048 bins, one at 1536) must have taken
+the FFT route.  The
 line before last is a JSON summary of the kernels (times, the bound from
 this run's shapes, the library call's time); the last is {"ok": true,
 "device": ...}.  Exits non-zero without a card, or when any phase fails.
@@ -232,7 +237,7 @@ def shifted_data(mft, shifts, gen, noise, dev, nbin=NBIN):
     return torch.cat(out)
 
 
-def template_routes(model):
+def template_routes(model, nbin=NBIN):
     """The template's split spectra (mr, mi), host float64: "capped", the
     band-capped prefix (band_cap_model_ft), and "full_band"."""
     import numpy as np
@@ -240,13 +245,13 @@ def template_routes(model):
     from pulseportraiture_tpu_torch.fitters.portrait import template_spectrum
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
     mf = np.fft.rfft(np.asarray(model, np.float64), axis=-1)
-    mr_c, mi_c, mh = sdft.band_cap_model_ft(mf.real, mf.imag, NBIN)
-    nh_c = sdft.cap_nharm(NBIN, mh)
+    mr_c, mi_c, mh = sdft.band_cap_model_ft(mf.real, mf.imag, nbin)
+    nh_c = sdft.cap_nharm(nbin, mh)
     return {"capped": (mr_c[:, :nh_c], mi_c[:, :nh_c]),
             "full_band": template_spectrum(model)}
 
 
-def phidm_recipe(dev, B, seed=0):
+def phidm_recipe(dev, B, seed=0, nbin=NBIN):
     """bench.py's (phi, DM) data on the card: bench_template shifted by
     phi ~ U(-0.01, 0.01) rot and DM ~ U(-2e-4, 2e-4) at the band's mean
     frequency, noise NOISE.  Returns (data (B, nchan, nbin) float32,
@@ -257,14 +262,14 @@ def phidm_recipe(dev, B, seed=0):
     gen = torch.Generator(device=dev).manual_seed(seed)
     f64 = dict(dtype=torch.float64, device=dev)
     freqs = torch.linspace(1100.0, 1900.0, NCHAN, **f64)
-    model = bench_template(freqs.cpu().numpy())
+    model = bench_template(freqs.cpu().numpy(), nbin)
     nu_fit = float(freqs.mean())
     phis = torch.rand(B, generator=gen, **f64) * 0.02 - 0.01
     dms = torch.rand(B, generator=gen, **f64) * 4e-4 - 2e-4
     shifts = phis[:, None] + DCONST * dms[:, None] / P * (
         freqs[None, :] ** -2 - nu_fit ** -2)
     mft = torch.fft.rfft(torch.as_tensor(model, **f64), dim=-1)
-    data = shifted_data(mft, shifts, gen, NOISE, dev)
+    data = shifted_data(mft, shifts, gen, NOISE, dev, nbin)
     return data, freqs, model, phis, dms, nu_fit
 
 
@@ -353,15 +358,16 @@ def rfft_cross_spectrum(xx, mr, mi, sc):
 
 def setup_gemm_route(dev):
     """The setup's SGEMM route (csrc/setup.cu) against its float64 twin at
-    a width the FFT route does not take: 4096 channels x 1280 bins, B=4,
-    K=2, capped and full band (data from a seed of its own: the other
-    phases' draws stay what they were)."""
+    a width the FFT route does not take: 4096 channels x 1000 bins, B=4,
+    K=2, the full band (nh=501) and a prefix of it (nh=125; 1000 bins
+    take no band cap), timed beside its two library calls (data from a
+    seed of its own: the other phases' draws stay what they were)."""
     import numpy as np
     import torch
 
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
 
-    nbin, B = 1280, 4
+    nbin, B = 1000, 4
     if sdft.setup_route(nbin) != "gemm":
         raise AssertionError(f"nbin={nbin} does not take the SGEMM route")
     freqs = np.linspace(1100.0, 1900.0, NCHAN)
@@ -373,16 +379,14 @@ def setup_gemm_route(dev):
         -0.05, 0.05, (B, 1)), device=dev).expand(B, NCHAN)
     x = shifted_data(mft, shifts, gen, NOISE, dev, nbin)
     mf = np.fft.rfft(model.astype(np.float64), axis=-1)
-    mr_c, mi_c, mh = sdft.band_cap_model_ft(mf.real, mf.imag, nbin)
-    nh_c = sdft.cap_nharm(nbin, mh)
     full = (mf.real.astype(np.float32), mf.imag.astype(np.float32))
     full[0][:, 0] = 0.0
     full[1][:, 0] = 0.0
     wt = torch.ones((B, NCHAN, 2), dtype=torch.float32, device=dev)
     wt[:, : NCHAN // 2, 1] = 0.0
     rec = {}
-    for name, (mr, mi) in (("capped", (mr_c[:, :nh_c], mi_c[:, :nh_c])),
-                           ("full_band", full)):
+    for name, nh in (("prefix", 125), ("full_band", nbin // 2 + 1)):
+        mr, mi = full[0][:, :nh], full[1][:, :nh]
         mr_t = torch.from_numpy(np.ascontiguousarray(mr)).to(dev)
         mi_t = torch.from_numpy(np.ascontiguousarray(mi)).to(dev)
         g0 = sdft.fused_setup.routes["gemm"]
@@ -404,20 +408,141 @@ def setup_gemm_route(dev):
         ms = cuda_ms(lambda: sdft.fused_setup(x, mr_t, mi_t, w=wt))
         plain = cuda_ms(lambda: sdft.fused_setup_reference(x, mr_t, mi_t,
                                                            w=wt))
-        E = dft_matrix(mr.shape[-1], dev, nbin)
+        E = dft_matrix(nh, dev, nbin)
         lib = cuda_ms(lambda: gemm_cross_spectrum(x, E, mr_t, mi_t, None))
         lib_fft = cuda_ms(lambda: rfft_cross_spectrum(x, mr_t, mi_t, None))
         del E
-        bnd, by = setup_bound(B, nbin, mr.shape[-1], 2, 4, False)
-        log(f"setup SGEMM route[{name}] nbin={nbin} nh={mr.shape[-1]} max "
+        bnd, by = setup_bound(B, nbin, nh, 2, 4, False)
+        log(f"setup SGEMM route[{name}] nbin={nbin} nh={nh} max "
             f"abs err Gr/Gi/sd/gsr/gsi {errs} bounds {bounds}; kernel "
             f"{ms:.4f} ms, plain (rfft twin) {plain:.4f} ms, library calls: "
             f"float32 GEMM {lib:.4f} ms, rfft + cross-spectrum "
             f"{lib_fft:.4f} ms; bound {bnd:.4f} ms ({by}) (B={B})")
-        rec[name] = dict(nbin=nbin, nh=mr.shape[-1], max_abs_err=max(
-            errs[:2]), ms=ms, plain_ms=plain, library_ms=min(lib, lib_fft),
-            library_gemm_ms=lib, library_rfft_ms=lib_fft, bound_ms=bnd,
-            bound_by=by)
+        rec[name] = dict(nbin=nbin, nh=nh, max_abs_err=max(errs[:2]), ms=ms,
+                         plain_ms=plain, library_ms=min(lib, lib_fft),
+                         library_gemm_ms=lib, library_rfft_ms=lib_fft,
+                         bound_ms=bnd, bound_by=by)
+    return rec
+
+
+def setup_case(tag, xx, mr_t, mi_t, wt, sc, nbin, sgemm=False):
+    """One fused_setup call on its FFT route against the float64 twin on
+    the card (2e-5 of the largest |output|), float32-class (within 4x of
+    a cuBLAS float32 DFT-as-GEMM's error, a bound a TF32 DFT exceeds),
+    the same bits from a second call; then timed beside the plain twin,
+    the two library calls (float32 GEMM, rfft + cross-spectrum) and, with
+    sgemm, csrc/setup.cu on the same inputs (sdft._launch_gemm).  Returns
+    the record."""
+    import torch
+
+    from pulseportraiture_tpu_torch.ops import setup_dft as sdft
+
+    B = xx.shape[0]
+    f0 = sdft.fused_setup.routes["fft"]
+    got = sdft.fused_setup(xx, mr_t, mi_t, w=wt, scale=sc)
+    torch.cuda.synchronize()
+    if sdft.fused_setup.routes["fft"] != f0 + 1:
+        raise AssertionError(f"setup[{tag}] did not take the FFT route")
+    again = sdft.fused_setup(xx, mr_t, mi_t, w=wt, scale=sc)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"setup[{tag}]: a second call gave other bits")
+    del again
+    ref = sdft.fused_setup_reference(
+        xx, mr_t.double(), mi_t.double(), w=wt.double(),
+        scale=None if sc is None else sc.double())
+    gmax = max(float(ref[0].abs().max()), float(ref[1].abs().max()))
+    smax = max(float(ref[3].abs().max()), float(ref[4].abs().max()))
+    errs = [float((g.double() - r).abs().max()) for g, r in zip(got, ref)]
+    bounds = [2e-5 * gmax, 2e-5 * gmax, 2e-5 * float(ref[2].abs().max()),
+              2e-5 * smax, 2e-5 * smax]
+    nh = mr_t.shape[-1]
+    log(f"setup[{tag}] nh={nh} max abs err Gr/Gi/sd/gsr/gsi {errs} bounds "
+        f"{bounds}")
+    if any(e > b for e, b in zip(errs, bounds)):
+        raise AssertionError(f"setup[{tag}] disagrees with its twin")
+    # The DFT must be float32-class: within 4x of a cuBLAS float32
+    # GEMM's error on the same inputs, a bound a TF32 DFT must exceed.
+    e_cls = {}
+    E = dft_matrix(nh, xx.device, nbin)
+    for cls, tf in (("f32", False), ("tf32", True)):
+        g = gemm_cross_spectrum(xx, E, mr_t, mi_t, sc, tf32_inputs=tf)
+        e_cls[cls] = max(float((a.double() - r).abs().max())
+                         for a, r in zip(g, ref[:2]))
+        del g
+    del got, ref
+    log(f"setup[{tag}] Gr/Gi max abs err: kernel {max(errs[:2])}, float32 "
+        f"GEMM {e_cls['f32']}, TF32-input GEMM {e_cls['tf32']}")
+    if max(errs[:2]) > 4 * e_cls["f32"]:
+        raise AssertionError(f"setup[{tag}] is not float32-class")
+    if 4 * e_cls["f32"] >= e_cls["tf32"]:
+        raise AssertionError(f"setup[{tag}]: the float32-class bound does "
+                             "not exclude a TF32 DFT")
+    ms = cuda_ms(lambda: sdft.fused_setup(xx, mr_t, mi_t, w=wt, scale=sc))
+    plain = cuda_ms(lambda: sdft.fused_setup_reference(
+        xx, mr_t, mi_t, w=wt, scale=sc))
+    lib = cuda_ms(lambda: gemm_cross_spectrum(xx, E, mr_t, mi_t, sc))
+    lib_fft = cuda_ms(lambda: rfft_cross_spectrum(xx, mr_t, mi_t, sc))
+    del E
+    bnd, by = setup_bound(B, nbin, nh, 2, xx.element_size(), sc is not None)
+    rec = dict(max_abs_err=max(errs[:2]), ms=ms, plain_ms=plain,
+               library_ms=min(lib, lib_fft), library_gemm_ms=lib,
+               library_rfft_ms=lib_fft, bound_ms=bnd, bound_by=by)
+    extra = ""
+    if sgemm:
+        rec["sgemm_route_ms"] = cuda_ms(lambda: sdft._launch_gemm(
+            xx, mr_t, mi_t, False, wt, sc), reps=5)
+        extra = f", csrc/setup.cu {rec['sgemm_route_ms']:.4f} ms"
+    log(f"setup[{tag}] kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+        f"calls: float32 GEMM {lib:.4f} ms, rfft + cross-spectrum "
+        f"{lib_fft:.4f} ms{extra}; bound {bnd:.4f} ms ({by}) (B={B})")
+    return rec
+
+
+# the mixed-radix plans chip_smoke.py holds at full width: nbin/2 = m 2^a
+# with m = 3, 5, 3 and 15
+MIXED_NBINS = (768, 1280, 1536, 3840)
+
+
+def setup_mixed_radix(dev):
+    """The FFT route's mixed-radix plans at 4096 channels x nbin in
+    MIXED_NBINS, B=4, K=2: capped (the band cap's nh) and full band, each
+    with float32 rows and with int16 rows + scale, through setup_case with
+    csrc/setup.cu timed beside it (data from seeds of their own)."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu_torch.io.native import quantize_i2
+    from pulseportraiture_tpu_torch.ops import setup_dft as sdft
+
+    B = 4
+    freqs = np.linspace(1100.0, 1900.0, NCHAN)
+    wt = torch.ones((B, NCHAN, 2), dtype=torch.float32, device=dev)
+    wt[:, : NCHAN // 2, 1] = 0.0
+    rec = {}
+    for nbin in MIXED_NBINS:
+        if sdft.setup_route(nbin) != "fft":
+            raise AssertionError(f"nbin={nbin} does not take the FFT route")
+        model = bench_template(freqs, nbin)
+        gen = torch.Generator(device=dev).manual_seed(nbin)
+        mft = torch.fft.rfft(torch.as_tensor(model, dtype=torch.float64,
+                                             device=dev), dim=-1)
+        shifts = torch.as_tensor(np.random.default_rng(nbin).uniform(
+            -0.05, 0.05, (B, 1)), device=dev).expand(B, NCHAN)
+        x = shifted_data(mft, shifts, gen, NOISE, dev, nbin)
+        raw, scl, _ = quantize_i2(x.cpu().numpy())
+        raw = torch.from_numpy(raw).to(dev)
+        scl = torch.from_numpy(scl.astype(np.float32)).to(dev)
+        for route, (mr, mi) in template_routes(model, nbin).items():
+            mr_t = torch.as_tensor(np.ascontiguousarray(mr),
+                                   dtype=torch.float32, device=dev)
+            mi_t = torch.as_tensor(np.ascontiguousarray(mi),
+                                   dtype=torch.float32, device=dev)
+            for rows, xx, sc in (("f32", x, None), ("i16", raw, scl)):
+                name = f"{nbin}_{route}_{rows}"
+                rec[name] = dict(nbin=nbin, nh=mr_t.shape[-1], **setup_case(
+                    name, xx, mr_t, mi_t, wt, sc, nbin, sgemm=True))
+        del x, raw, scl
     return rec
 
 
@@ -460,55 +585,7 @@ def phase_kernels(dev, rng):
     for name, xx, (mr, mi), sc in cases:
         mr_t = torch.from_numpy(np.ascontiguousarray(mr)).to(dev)
         mi_t = torch.from_numpy(np.ascontiguousarray(mi)).to(dev)
-        f0 = sdft.fused_setup.routes["fft"]
-        got = sdft.fused_setup(xx, mr_t, mi_t, w=wt, scale=sc)
-        torch.cuda.synchronize()
-        if sdft.fused_setup.routes["fft"] != f0 + 1:
-            raise AssertionError(f"setup[{name}] did not take the FFT route")
-        ref = sdft.fused_setup_reference(
-            xx, mr_t.double(), mi_t.double(), w=wt.double(),
-            scale=None if sc is None else sc.double())
-        gmax = max(float(ref[0].abs().max()), float(ref[1].abs().max()))
-        smax = max(float(ref[3].abs().max()), float(ref[4].abs().max()))
-        errs = [float((g.double() - r).abs().max())
-                for g, r in zip(got, ref)]
-        bounds = [2e-5 * gmax, 2e-5 * gmax, 2e-5 * float(ref[2].abs().max()),
-                  2e-5 * smax, 2e-5 * smax]
-        log(f"setup[{name}] nh={mr.shape[-1]} max abs err Gr/Gi/sd/gsr/gsi "
-            f"{errs} bounds {bounds}")
-        if any(e > b for e, b in zip(errs, bounds)):
-            raise AssertionError(f"setup[{name}] disagrees with its twin")
-        # The DFT must be float32-class: within 4x of a cuBLAS float32
-        # GEMM's error on the same inputs, a bound a TF32 DFT must exceed.
-        e_cls = {}
-        E = dft_matrix(mr.shape[-1], dev)
-        for cls, tf in (("f32", False), ("tf32", True)):
-            g = gemm_cross_spectrum(xx, E, mr_t, mi_t, sc, tf32_inputs=tf)
-            e_cls[cls] = max(float((a.double() - r).abs().max())
-                             for a, r in zip(g, ref[:2]))
-            del g
-        log(f"setup[{name}] Gr/Gi max abs err: kernel {max(errs[:2])}, "
-            f"float32 GEMM {e_cls['f32']}, TF32-input GEMM {e_cls['tf32']}")
-        if max(errs[:2]) > 4 * e_cls["f32"]:
-            raise AssertionError(f"setup[{name}] is not float32-class")
-        if 4 * e_cls["f32"] >= e_cls["tf32"]:
-            raise AssertionError(f"setup[{name}]: the float32-class bound "
-                                 "does not exclude a TF32 DFT")
-        ms = cuda_ms(lambda: sdft.fused_setup(xx, mr_t, mi_t, w=wt,
-                                              scale=sc))
-        plain = cuda_ms(lambda: sdft.fused_setup_reference(
-            xx, mr_t, mi_t, w=wt, scale=sc))
-        lib = cuda_ms(lambda: gemm_cross_spectrum(xx, E, mr_t, mi_t, sc))
-        lib_fft = cuda_ms(lambda: rfft_cross_spectrum(xx, mr_t, mi_t, sc))
-        bnd, by = setup_bound(B, NBIN, mr.shape[-1], 2, xx.element_size(),
-                              sc is not None)
-        log(f"setup[{name}] kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"library calls: float32 GEMM {lib:.4f} ms, rfft + "
-            f"cross-spectrum {lib_fft:.4f} ms; bound {bnd:.4f} ms ({by}) "
-            f"(B={B})")
-        rec[name] = dict(max_abs_err=max(errs[:2]), ms=ms, plain_ms=plain,
-                         library_ms=min(lib, lib_fft), library_gemm_ms=lib,
-                         library_rfft_ms=lib_fft, bound_ms=bnd, bound_by=by)
+        rec[name] = setup_case(name, xx, mr_t, mi_t, wt, sc, NBIN)
 
     # what the per-item route of fit_portrait_full_batch gives the setup
     # (the narrowband fit_scat path): ONE item of 4096 rows, each against
@@ -671,8 +748,8 @@ def phase_scat_kernel(dev):
     return rec
 
 
-def phase_fit(dev):
-    """Batched fits at 4096 x 2048, B=64, capped and full band."""
+def phase_fit(dev, nbin=NBIN):
+    """Batched fits at 4096 x nbin, B=64, capped and full band."""
     import torch
 
     from pulseportraiture_tpu_torch.config import DCONST
@@ -683,8 +760,9 @@ def phase_fit(dev):
     from pulseportraiture_tpu_torch.ops.transform import phase_transform
 
     B = 64
-    data, freqs, model, phis, dms, nu_fit = phidm_recipe(dev, B)
-    routes = template_routes(model)
+    data, freqs, model, phis, dms, nu_fit = phidm_recipe(dev, B, nbin=nbin)
+    routes = template_routes(model, nbin)
+    at = "" if nbin == NBIN else f" at {nbin} bins"
 
     def args(d, dt, n):
         t = dict(dtype=dt, device=d)
@@ -711,7 +789,7 @@ def phase_fit(dev):
         sec = statistics.median(times)
         rc = res.return_code.cpu()
         if not bool((rc < 3).all()):
-            raise AssertionError(f"fit[{name}] items not converged: {rc}")
+            raise AssertionError(f"fit[{name}]{at} items not converged: {rc}")
         p = res.params.double()
         nu_out = res.nu_DM.double()
         phi_back = phase_transform(p[:, 0], p[:, 1], nu_out, nu_fit, P,
@@ -722,7 +800,7 @@ def phase_fit(dev):
         zphi = ((phi_back - phis) / sig_phi).abs().max().item()
         zdm = ((p[:, 1] - dms) / e[:, 1]).abs().max().item()
         if zphi > 5 or zdm > 5:
-            raise AssertionError(f"fit[{name}] off the injection: "
+            raise AssertionError(f"fit[{name}]{at} off the injection: "
                                  f"{zphi:.2f}, {zdm:.2f} sigma")
         # the same data through the float64 twin route on the CPU
         nc = 8
@@ -737,20 +815,20 @@ def phase_fit(dev):
         ddm = ((p[:nc, 1].cpu() - ref.params[:, 1]) / e[:nc, 1].cpu()).abs()
         agree = max(float(dphi.max()), float(ddm.max()))
         mean_niter = float(res.niter.double().mean())
-        log(f"fit[{name}] B={B} nh={mft_ri[0].shape[-1]}: "
+        log(f"fit[{name}]{at} B={B} nh={mft_ri[0].shape[-1]}: "
             f"{B / sec:.2f} fits/s ({sec * 1e3:.2f} ms/batch, median of 3), "
             f"mean niter {mean_niter}, max |dphi|/sigma {zphi:.3f}, "
             f"max |dDM|/sigma {zdm:.3f}, card route vs f64 twin route "
             f"{agree:.2e} sigma, max|dphi| "
             f"{float((phi_back - phis).abs().max()):.3e} rot")
         if agree > 1e-2:
-            raise AssertionError(f"fit[{name}] kernel route vs f64 twin "
+            raise AssertionError(f"fit[{name}]{at} kernel route vs f64 twin "
                                  f"route: {agree:.3e} sigma > 0.01")
         out[name] = dict(fits_per_s=B / sec, sec_per_batch=sec,
                          mean_niter=mean_niter, twin_sigma=agree)
     launches = (sdft.fused_setup.launches - sd0,
                 mom.phase_moments.launches - mm0)
-    log(f"batched-fit phase launches: fused_setup {launches[0]}, "
+    log(f"batched-fit phase{at} launches: fused_setup {launches[0]}, "
         f"phase_moments {launches[1]}")
     if min(launches) <= 0:
         raise AssertionError("a kernel did not launch in the fit phase")
@@ -860,7 +938,8 @@ def phase_scat_fit(dev):
 
 def write_archives(rng, nsub=8, t_scat=0.0, tag="epoch", narch=2,
                    rfi_chans=(), nchan=NCHAN, jitter=0.2,
-                   dDMs=(3e-4, -2e-4), offsets=(0.0, 0.0), index2=-1.5):
+                   dDMs=(3e-4, -2e-4), offsets=(0.0, 0.0), index2=-1.5,
+                   nbin=NBIN):
     """narch (at most two) int16 archives x nsub subints (scattered by
     t_scat [s] at 1500 MHz, index -4, when t_scat > 0) + a float32
     noiseless template.  rfi_chans get 5x the noise, white, and as much
@@ -872,7 +951,9 @@ def write_archives(rng, nsub=8, t_scat=0.0, tag="epoch", narch=2,
     [rot] plus a draw from U(-jitter, jitter) rot (0: coherent subints,
     as folding with a good ephemeris leaves them); archive i is
     dispersed by DM + dDMs[i].  index2: bench_template's second
-    component's spectral index."""
+    component's spectral index.  nbin: the archives' and the template's
+    bins (the template's file is named by it at other widths than NBIN,
+    so that a second width does not overwrite the first's)."""
     import numpy as np
 
     from pulseportraiture_tpu_torch.config import DCONST
@@ -885,14 +966,14 @@ def write_archives(rng, nsub=8, t_scat=0.0, tag="epoch", narch=2,
     nu0, bw, DM = 1500.0, 800.0, 30.0
     cw = bw / nchan
     freqs = np.linspace(nu0 - bw / 2 + cw / 2, nu0 + bw / 2 - cw / 2, nchan)
-    model = bench_template(freqs, index2=index2).astype(np.float64)
+    model = bench_template(freqs, nbin, index2).astype(np.float64)
     mft = np.fft.rfft(model, axis=-1)
     if t_scat:
         mft_d = mft * scattering_portrait_FT_np(
-            t_scat / P * (freqs / nu0) ** ALPHA0, NBIN)
+            t_scat / P * (freqs / nu0) ** ALPHA0, nbin)
     else:
         mft_d = mft
-    k = np.arange(NBIN // 2 + 1)
+    k = np.arange(nbin // 2 + 1)
     inv2 = freqs ** -2.0 - nu0 ** -2.0
 
     def arch(data, DM_, dDM_epoch):
@@ -906,28 +987,29 @@ def write_archives(rng, nsub=8, t_scat=0.0, tag="epoch", narch=2,
             nu0=nu0, bw=bw, source="J0000+0000", telescope="GBT",
             frontend="rx", backend="be")
 
-    tmpl = os.path.join(WORK, "template.fits")
+    tmpl = os.path.join(WORK, "template.fits" if nbin == NBIN else
+                        f"template{nbin}.fits")
     write_psrfits(tmpl, arch(model[None, None], 0.0, 0), dtype="f4")
     files, dDMs = [], list(dDMs[:narch])
     injected = np.empty((narch, nsub, nchan))
     for ia, dDM in enumerate(dDMs):
-        data = np.empty((nsub, 1, nchan, NBIN))
+        data = np.empty((nsub, 1, nchan, nbin))
         for i in range(nsub):
             phase = offsets[ia] + rng.uniform(-jitter, jitter)
             phis = -phase - DCONST * (DM + dDM) / P * inv2
             injected[ia, i] = phis
             theta = np.mod(phis[:, None] * k, 1.0) * (2.0 * np.pi)
-            data[i, 0] = np.fft.irfft(mft_d * np.exp(1j * theta), n=NBIN,
+            data[i, 0] = np.fft.irfft(mft_d * np.exp(1j * theta), n=nbin,
                                       axis=-1)
         data += rng.normal(0.0, NOISE, data.shape)
         if len(rfi_chans):
             rfi = list(rfi_chans)
             data[:, 0, rfi] += rng.normal(0.0, 5 * NOISE,
-                                          (nsub, len(rfi), NBIN))
+                                          (nsub, len(rfi), nbin))
             spec = np.fft.rfft(rng.normal(0.0, 5 * NOISE,
-                                          (nsub, len(rfi), NBIN)), axis=-1)
-            spec[..., NBIN // 4:] = 0.0
-            data[:, 0, rfi] += np.fft.irfft(spec, n=NBIN, axis=-1)
+                                          (nsub, len(rfi), nbin)), axis=-1)
+            spec[..., nbin // 4:] = 0.0
+            data[:, 0, rfi] += np.fft.irfft(spec, n=nbin, axis=-1)
         path = os.path.join(WORK, f"{tag}{ia}.fits")
         write_psrfits(path, arch(data, DM, ia + 1), dtype="i2")
         files.append(path)
@@ -954,17 +1036,21 @@ def read_launches():
             "phase_moments_merged": mom.phase_moments_merged.launches}
 
 
-def phase_pipeline(rng):
-    """GetTOAs on the card; returns the launch counts of its run and its
-    archives (files, dDMs, template)."""
+def phase_pipeline(rng, nbin=NBIN, narch=2):
+    """GetTOAs on the card (narch archives x 8 subints x nbin bins);
+    returns the launch counts of its run, its archives (files, dDMs,
+    template) and its TOAs."""
     import numpy as np
 
     from pulseportraiture_tpu_torch.io.tim import write_TOAs
     from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
 
     t0 = time.perf_counter()
-    files, dDMs, tmpl, _ = write_archives(rng)
-    log(f"pipeline: wrote 2 x 8 x {NCHAN} x {NBIN} int16 archives in "
+    tag = "pipeline" if nbin == NBIN else f"pipeline {nbin}"
+    files, dDMs, tmpl, _ = write_archives(
+        rng, narch=narch, nbin=nbin,
+        tag="epoch" if nbin == NBIN else f"epoch{nbin}_")
+    log(f"{tag}: wrote {narch} x 8 x {NCHAN} x {nbin} int16 archives in "
         f"{time.perf_counter() - t0:.2f} s")
     gt = GetTOAs(files, tmpl, device="cuda", quiet=True)
     # the main path: every launch count from 0, read right after
@@ -975,18 +1061,20 @@ def phase_pipeline(rng):
     launches = read_launches()
     tim = os.path.join(WORK, "smoke.tim")
     lines = write_TOAs(gt.TOA_list, outfile=tim, append=False)
-    log(f"pipeline: {len(lines)} TOAs in {wall:.2f} s "
+    log(f"{tag}: {len(lines)} TOAs in {wall:.2f} s "
         f"(timing {json.dumps(gt.fit_timing)}); mharm {gt.mharms}; "
         f"launches {launches}")
-    log("pipeline: " + lines[0])
-    if len(lines) != 16:
-        raise AssertionError(f"expected 16 TOAs, got {len(lines)}")
+    log(f"{tag}: " + lines[0])
+    if len(lines) != 8 * narch:
+        raise AssertionError(f"{tag}: expected {8 * narch} TOAs, got "
+                             f"{len(lines)}")
     rec = np.asarray(gt.DeltaDM_means)
     err = np.asarray(gt.DeltaDM_errs)
-    log(f"pipeline: DeltaDM {rec.tolist()} +- {err.tolist()}, injected "
+    log(f"{tag}: DeltaDM {rec.tolist()} +- {err.tolist()}, injected "
         f"{dDMs}")
     if not np.all(np.abs(rec - dDMs) <= 3 * err):
-        raise AssertionError("injected dDM not recovered within 3 sigma")
+        raise AssertionError(f"{tag}: injected dDM not recovered within 3 "
+                             "sigma")
     if not gt.mharms or min(gt.mharms) <= 0:
         raise AssertionError(f"the f32 template did not cap: {gt.mharms}")
     if min(launches["fused_setup"], launches["phase_moments"]) <= 0:
@@ -2050,10 +2138,12 @@ def main():
                                  f"{line.strip()}")
     rng = np.random.default_rng(0)
     krec = phase_kernels(dev, rng)
+    xrec = setup_mixed_radix(dev)
     grec = setup_gemm_route(dev)
     srec = phase_scat_kernel(dev)
     mrec = phase_merged_kernel(dev)
     fits = phase_fit(dev)
+    fits_1536 = phase_fit(dev, 1536)
     scat_fits = phase_scat_fit(dev)
     gm_fits = phase_gm_fit(dev)
     try:
@@ -2062,6 +2152,10 @@ def main():
         paths, unsharded = {}, {}
         paths["pipeline"], pipe_arch, unsharded["pipeline"] = \
             phase_pipeline(rng)
+        # one archive at a width that is not a power of two (a generator
+        # of its own: the other phases' draws stay what they were)
+        paths["pipeline_1536"], _, _ = phase_pipeline(
+            np.random.default_rng(1536), nbin=1536, narch=1)
         paths["pipeline_fit_scat"], scat_arch, \
             unsharded["pipeline_fit_scat"] = phase_pipeline_scat(rng)
         paths["pipeline_gm"], paths["pipeline_gm_fit_scat"], pipeline_gm, \
@@ -2084,7 +2178,8 @@ def main():
         paths.update(tb_paths)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    # every path runs at 2048 bins: its setup launches are the FFT route's
+    # every path runs at 2048 bins (pipeline_1536 at 1536): its setup
+    # launches are the FFT route's
     for path, c in paths.items():
         if c["fused_setup_routes"]["fft"] != c["fused_setup"]:
             raise AssertionError(f"{path}: fused_setup launched "
@@ -2111,10 +2206,11 @@ def main():
                   "one_item_full_band")},
                    routes_by_path={p: c["fused_setup_routes"]
                                    for p, c in paths.items()},
+                   mixed_radix=xrec,
                    second_route=dict(
                        route="cuda",
                        source="pulseportraiture_tpu_torch/csrc/setup.cu",
-                       taken_when="nbin is not a power of two in 128..4096",
+                       taken_when="nbin is neither 128 nor 256 q, q = 1..16",
                        **grec))),
         entry("phase_moments", "pulseportraiture_tpu_torch/csrc/moments.cu",
               tpu + "pallas_moments.py:323",
@@ -2132,7 +2228,8 @@ def main():
               "pulseportraiture_tpu_torch/csrc/moments_merged.cu",
               "scripts/tpu_moments_layout.py:138", [], mrec["subint"],
               {"probe": mrec["probe"]})],
-        "fits": fits, "scattering_fits": scat_fits, "gm_fits": gm_fits,
+        "fits": fits, "fits_1536": fits_1536, "scattering_fits": scat_fits,
+        "gm_fits": gm_fits,
         "pipeline_gm": pipeline_gm, "zap": zap_rec,
         "narrowband": narrowband, "narrowband_fit_scat": narrowband_scat,
         "psrchive": psrchive, "template_build": template_build,

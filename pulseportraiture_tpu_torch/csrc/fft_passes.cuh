@@ -1,15 +1,26 @@
-// Register-resident passes of a Stockham autosort FFT of NZ = 2^LG complex
-// points (64 <= NZ <= 2048), for csrc/setup_fft.cu.
+// Register-resident passes of a Stockham autosort FFT of NZ = M 2^LG2
+// complex points, M odd in 1..15 and 64 <= 2^LG2 <= 2048 (2^LG2 >= 128
+// when M > 1), for csrc/setup_fft.cu.
 //
 // NZ/16 threads share one transform and each holds 16 points in registers
-// in every pass.  The passes are radix 16, then radix 16 again while 16
-// divides what is left, then one pass of radix 2, 4 or 8 (NZ = 1024: 16,
-// 16, 4): two or three trips through shared memory instead of the five or
-// six of a radix-4 walk.  A pass of radix R with p the product of the
-// earlier radices takes, for butterfly i < NZ/R, the points i + r NZ/R,
-// twiddles point r by e^{-2 pi i r k/(R p)} (k = i mod p), transforms them
-// in registers and writes result m to (i - k) R + k + m p.  Thread l takes
-// the butterflies l + (NZ/16) b, b < 16/R.
+// in every power-of-two pass.  The passes are radix 16, then radix 16 again
+// while 16 divides what is left of 2^LG2, then one pass of radix 2, 4 or 8
+// (2^LG2 = 1024: 16, 16, 4): two or three trips through shared memory
+// instead of the five or six of a radix-4 walk.  A pass of radix R with p
+// the product of the earlier radices takes, for butterfly i < NZ/R, the
+// points i + r NZ/R, twiddles point r by e^{-2 pi i r k/(R p)} (k = i mod
+// p), transforms them in registers and writes result m to (i - k) R + k +
+// m p.  Thread l takes the butterflies l + (NZ/16) b, b < 16/R.  Nothing
+// in those passes needs NZ to be a power of two, only p.
+//
+// When M > 1 a last pass of radix M closes the transform (p = 2^LG2, so
+// k = i and result m lands at i + m 2^LG2: natural order).  16 points a
+// thread do not split into M-point butterflies, so that pass has a thread
+// layout of its own: the worker's WT threads (a power of two, WT <= 2^LG2)
+// take the 2^LG2 butterflies i = l + WT j, j < 2^LG2/WT, M points each
+// (at most 15 a thread).  Its M-point DFT pairs the points r and M - r
+// and takes cos and sin of 2 pi j/M from a table of float64 values rounded
+// once (kOddTrig).
 //
 // Twiddles come from a table (ops/setup_dft._fft_tables_np): per twiddled
 // pass the runs r = 1 .. R-1 of p entries each.  The first pass has p = 1
@@ -116,17 +127,79 @@ __device__ __forceinline__ void dft<16>(float2* a) {
   }
 }
 
-// The passes of an NZ = 2^LG point transform.
-template <int LG>
+// cos and sin of 2 pi j/M, j = 1 .. (M-1)/2, for odd M = 3 .. 15 (row
+// (M-3)/2): the float64 values rounded once to float32
+static __constant__ float2 kOddTrig[7][7] = {
+    {{-0.5f, 0.8660254f}},
+    {{0.309017f, 0.95105654f}, {-0.809017f, 0.58778524f}},
+    {{0.6234898f, 0.7818315f}, {-0.22252093f, 0.9749279f},
+     {-0.90096885f, 0.43388373f}},
+    {{0.76604444f, 0.64278764f}, {0.17364818f, 0.9848077f},
+     {-0.5f, 0.8660254f}, {-0.9396926f, 0.34202015f}},
+    {{0.8412535f, 0.54064083f}, {0.41541502f, 0.90963197f},
+     {-0.14231484f, 0.98982143f}, {-0.65486073f, 0.7557496f},
+     {-0.959493f, 0.28173256f}},
+    {{0.885456f, 0.46472317f}, {0.56806475f, 0.82298386f},
+     {0.12053668f, 0.99270886f}, {-0.3546049f, 0.9350162f},
+     {-0.7485108f, 0.66312265f}, {-0.97094184f, 0.23931566f}},
+    {{0.9135454f, 0.40673664f}, {0.6691306f, 0.7431448f},
+     {0.309017f, 0.95105654f}, {-0.104528464f, 0.9945219f},
+     {-0.5f, 0.8660254f}, {-0.809017f, 0.58778524f},
+     {-0.9781476f, 0.20791169f}}};
+
+// The forward DFT of odd length M in registers, natural order in and out,
+// from the pairs p_r = a_r + a_{M-r}, q_r = a_r - a_{M-r} (r <= (M-1)/2):
+//   a[k], a[M-k] = a_0 + sum_r p_r cos(2 pi r k/M) -/+ i sum_r q_r sin(.)
+template <int M>
+__device__ __forceinline__ void dft_odd(float2* a) {
+  constexpr int H = (M - 1) / 2, T = (M - 3) / 2;
+  float2 p[H], q[H];
+  float2 s = a[0];
+#pragma unroll
+  for (int r = 0; r < H; ++r) {
+    p[r] = cadd(a[r + 1], a[M - 1 - r]);
+    q[r] = csub(a[r + 1], a[M - 1 - r]);
+    s = cadd(s, p[r]);
+  }
+#pragma unroll
+  for (int k = 1; k <= H; ++k) {
+    float2 re = a[0], im = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int r = 1; r <= H; ++r) {
+      const int j = (r * k) % M;                 // angle 2 pi j/M
+      const float c = j == 0   ? 1.0f               // M = 9, 15: r k = M
+                      : j <= H ? kOddTrig[T][j - 1].x
+                               : kOddTrig[T][M - j - 1].x;
+      const float sn = j == 0   ? 0.0f
+                       : j <= H ? kOddTrig[T][j - 1].y
+                                : -kOddTrig[T][M - j - 1].y;
+      re.x = fmaf(p[r - 1].x, c, re.x);
+      re.y = fmaf(p[r - 1].y, c, re.y);
+      im.x = fmaf(q[r - 1].x, sn, im.x);
+      im.y = fmaf(q[r - 1].y, sn, im.y);
+    }
+    a[k] = make_float2(re.x + im.y, re.y - im.x);          // re - i im
+    a[M - k] = make_float2(re.x - im.y, re.y + im.x);      // re + i im
+  }
+  a[0] = s;
+}
+
+// The passes of an NZ = M 2^LG2 point transform.
+template <int M_, int LG2>
 struct Plan {
-  static_assert(LG >= 6 && LG <= 11, "64 <= NZ <= 2048");
-  static constexpr int NZ = 1 << LG;
+  static_assert(LG2 >= 6 && LG2 <= 11, "64 <= 2^LG2 <= 2048");
+  static_assert(M_ == 1 || (M_ % 2 == 1 && M_ <= 15 && LG2 >= 7),
+                "M odd in 3..15 over at least 128 points");
+  static constexpr int M = M_;
+  static constexpr int N2 = 1 << LG2;            // the power-of-two factor
+  static constexpr int NZ = M_ * N2;
   static constexpr int NA = NZ / 16;             // threads with work
-  static constexpr int R2 = LG >= 8 ? 16 : 1 << (LG - 4);   // second pass
-  static constexpr int R3 = LG > 8 ? 1 << (LG - 8) : 1;     // third, or none
+  static constexpr int R2 = LG2 >= 8 ? 16 : 1 << (LG2 - 4);  // second pass
+  static constexpr int R3 = LG2 > 8 ? 1 << (LG2 - 8) : 1;    // third, or none
   static constexpr int TW2 = 0;                  // table offsets (float2)
   static constexpr int TW3 = (R2 - 1) * 16;
-  static constexpr int NTW = TW3 + (R3 > 1 ? (R3 - 1) * 256 : 0);
+  static constexpr int TWM = TW3 + (R3 > 1 ? (R3 - 1) * 256 : 0);
+  static constexpr int NTW = TWM + (M_ - 1) * N2;
   static constexpr int WSZ = NZ + NZ / 16;       // padded buffer, float2
 };
 
@@ -192,36 +265,61 @@ __device__ __forceinline__ void pass_store(float2* v, float2* dst,
 // phase 0: raw row -> first pass -> buf (padded)
 // phase 1: load for the second pass         phase 2: second pass -> buf
 // phase 3: load for the third pass          phase 4: third pass -> buf
-// (phases 3 and 4 only when Plan<LG>::R3 > 1).  buf then holds Z in
-// natural order, unpadded.
-template <int LG, class Raw>
+// (phases 3 and 4 only when P::R3 > 1).  With P = Plan<1, LG2> buf then
+// holds Z in natural order, unpadded; with M > 1, after the odd pass.
+template <class P, class Raw>
 __device__ __forceinline__ void fft_phase0(float2* v, const Raw& raw,
                                            float2* buf, int l) {
-  constexpr int NZ = Plan<LG>::NZ;
-  pass_load<16, NZ>(v, raw, l);
-  pass_store<16, NZ, 1, true>(v, buf, nullptr, l);
+  pass_load<16, P::NZ>(v, raw, l);
+  pass_store<16, P::NZ, 1, true>(v, buf, nullptr, l);
 }
-template <int LG>
+template <class P>
 __device__ __forceinline__ void fft_phase1(float2* v, const float2* buf,
                                            int l) {
-  pass_load<Plan<LG>::R2, Plan<LG>::NZ>(v, Padded{buf}, l);
+  pass_load<P::R2, P::NZ>(v, Padded{buf}, l);
 }
-template <int LG>
+template <class P>
 __device__ __forceinline__ void fft_phase2(float2* v, float2* buf,
                                            const float2* tw, int l) {
-  pass_store<Plan<LG>::R2, Plan<LG>::NZ, 16, false>(
-      v, buf, tw + Plan<LG>::TW2, l);
+  pass_store<P::R2, P::NZ, 16, false>(v, buf, tw + P::TW2, l);
 }
-template <int LG>
+template <class P>
 __device__ __forceinline__ void fft_phase3(float2* v, const float2* buf,
                                            int l) {
-  pass_load<Plan<LG>::R3, Plan<LG>::NZ>(v, Plain{buf}, l);
+  pass_load<P::R3, P::NZ>(v, Plain{buf}, l);
 }
-template <int LG>
+template <class P>
 __device__ __forceinline__ void fft_phase4(float2* v, float2* buf,
                                            const float2* tw, int l) {
-  pass_store<Plan<LG>::R3, Plan<LG>::NZ, 256, false>(
-      v, buf, tw + Plan<LG>::TW3, l);
+  pass_store<P::R3, P::NZ, 256, false>(v, buf, tw + P::TW3, l);
+}
+
+// The odd pass (P::M > 1), by all WT threads of the worker: load thread
+// l's butterflies i = l + WT j (u[j][r] = point i + r N2) ...
+template <class P, int WT, int J>
+__device__ __forceinline__ void odd_load(float2 (&u)[J][P::M],
+                                         const float2* buf, int l) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int r = 0; r < P::M; ++r) u[j][r] = buf[l + WT * j + r * P::N2];
+}
+// ... then twiddle, transform and write them: result m of butterfly i to
+// i + m N2 (natural order)
+template <class P, int WT, int J>
+__device__ __forceinline__ void odd_store(float2 (&u)[J][P::M], float2* buf,
+                                          const float2* tw, int l) {
+  const float2* twm = tw + P::TWM;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int i = l + WT * j;
+#pragma unroll
+    for (int r = 1; r < P::M; ++r)
+      u[j][r] = cmul(u[j][r], twm[(r - 1) * P::N2 + i]);
+    dft_odd<P::M>(u[j]);
+#pragma unroll
+    for (int m = 0; m < P::M; ++m) buf[i + m * P::N2] = u[j][m];
+  }
 }
 
 }  // namespace ppfft

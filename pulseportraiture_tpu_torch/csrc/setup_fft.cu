@@ -8,9 +8,11 @@
 // NQ*M') and ct_setup (_ct_setup_kernel_factory; the full band, nh =
 // nbin/2 + 1).  Harmonics are a natural-order prefix k < nh, so the two
 // differ only in how many harmonics the epilogue reads the model for and
-// writes; the transform is full either way.  (csrc/setup.cu computes the
-// same function as a DFT-as-SGEMM, 4 nbin nh flops per row; it serves the
-// nbin this kernel does not take: not a power of two in 128..4096.)
+// writes; the transform is full either way.  It takes nbin = 128 and every
+// nbin = 256 q, q = 1 .. 16: every width the TPU kernels take (the band
+// cap's NQ*128, NQ even).  (csrc/setup.cu computes the same function as a
+// DFT-as-SGEMM, 4 nbin nh flops per row; it serves the nbin this kernel
+// does not take: odd nbin, 64, 1000, 8192, ...)
 //
 // Bound on the H100: bytes.  Once the DFT is factored the function needs
 // 2.5 nbin log2(nbin) flops per row against nbin * itemsize bytes read, so
@@ -18,38 +20,47 @@
 // arithmetic.  Tensor cores are deliberately not used: a tensor-core DFT
 // does 150x the arithmetic of the factored transform at a worse accuracy
 // class (TF32 or a single bf16 pass), for a function that is byte-bound.
-// (As measured on an H100 the kernel runs at 1.6-3.4x its byte bound, held
-// by the rate at which 16 warps an SM get their instructions out.)
+// (As measured on an H100 the kernel runs at 1.5-3.4x its byte bound at
+// 2048 bins and 1.8-5.2x at 768, 1280, 1536 and 3840, held by the rate at
+// which 16 warps an SM get their instructions out.)
 //
 // Design:
 //   * One channel row lives in shared memory from its arrival to its
 //     outputs.  The real nbin-point transform runs as an nbin/2-point
 //     complex FFT of z_j = x_2j + i x_2j+1 (the raw row read as float2, or
 //     as short2 and converted on the way: int16 ingest moves half the
-//     bytes).  A worker of nbin/32 threads (at least a warp) owns a row;
-//     each thread holds 16 points in registers through passes of radix 16,
-//     16 and 2, 4 or 8 (csrc/fft_passes.cuh: Stockham autosort, no bit
-//     reversal, in place in the worker's buffer, a named barrier of the
-//     worker's warps between a pass's loads and its stores): two or three
-//     trips through shared memory, and no block-wide barrier inside a
-//     transform.  A block of 256 threads runs 256/(nbin/32) workers (4 at
-//     nbin 2048), one row each: a group of rows.
+//     bytes).  A worker of nbin/32 threads, rounded up to a power of two
+//     and at least a warp, owns a row; each thread holds 16 points in
+//     registers through passes of radix 16, 16 and 2, 4 or 8
+//     (csrc/fft_passes.cuh: Stockham autosort, no bit reversal, in place in
+//     the worker's buffer, a named barrier of the worker's warps between a
+//     pass's loads and its stores): two or three trips through shared
+//     memory, and no block-wide barrier inside a transform.  When nbin/2 =
+//     M 2^a with M odd (3 .. 15: nbin 768, 1280, ..., 3840), the same
+//     passes take the power-of-two factor and one more pass of radix M
+//     closes the transform in natural order, every thread of the worker
+//     holding the M points of 2^a/WT butterflies (one more trip; the idle
+//     lanes of the rounded-up worker wait at its barriers).  A block of 256
+//     threads runs 256/WT workers (4 at nbin 2048), one row each: a group
+//     of rows.
 //   * No sincosf: pass twiddles and W^k come from a host table built in
 //     float64 and cast to float32, laid out per pass so that neighbouring
 //     threads read neighbouring entries, copied to shared memory once per
-//     block; the radix-16 and radix-8 butterflies' inner twiddles are
-//     constants.
+//     block; the radix-16 and radix-8 butterflies' inner twiddles and the
+//     odd DFTs' cos and sin are constants, float64 values rounded once.
 //   * A block takes a tile of consecutive channels of one item, group after
 //     group, and every worker keeps a ring of two raw rows in shared
 //     memory: its first thread starts cp.async.bulk (the 1-D TMA bulk copy)
 //     for the rows ahead, completion on an mbarrier per ring slot, while
 //     the worker transforms the current row.  A slot is free again once the
 //     first pass has read it.  (A third slot costs a resident block per SM
-//     and was slower on the H100.)
+//     and was slower on the H100.)  Two blocks share an SM where their
+//     shared memory allows (every nbin but 3840 and 4096).
 //   * sd is the sum of |Z_k|^2 of the packed spectrum, taken by the worker
-//     from its registers after the last pass (the pair X_k, X_{N/2-k}
-//     carries the power of Z_k, Z_{N/2-k}; Z_0 holds X_0 and the Nyquist
-//     term): warp shuffles, then a fixed-order sum of the warp results.
+//     from its registers after the last pass, the odd one if any (the pair
+//     X_k, X_{N/2-k} carries the power of Z_k, Z_{N/2-k}; Z_0 holds X_0 and
+//     the Nyquist term): warp shuffles, then a fixed-order sum of the warp
+//     results.
 //   * Fused epilogue, nothing spilled to device memory.  After a block
 //     barrier all 256 threads untangle the group's rows,
 //       X_k = E - i W^k O,  E = (Z_k + conj Z_{N/2-k})/2,
@@ -76,6 +87,8 @@ constexpr int NT = 256;        // threads per block
 constexpr int NSLOT = 2;       // ring slots: raw rows per worker
 constexpr int MIN_NBIN = 128;
 constexpr int MAX_NBIN = 4096;
+constexpr int SM_SMEM = 233472;   // shared memory of an SM (228 KB)
+constexpr int BLOCK_RESERVED = 1024;  // the system's share of each block
 constexpr int MAX_SEEDS = 2;   // seed columns whose sums a thread keeps
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -214,23 +227,62 @@ __device__ __forceinline__ void fetch_rows(const Args& a, int b, int c,
   }
 }
 
-// LG: log2(nbin/2); KS: seed accumulators per harmonic (kseed <= KS).
-// Two blocks share an SM (shared memory allows no more; at nbin = 4096 one),
-// so a thread may use 128 registers.
-template <int LG, int KS>
-__global__ void __launch_bounds__(NT, LG <= 10 ? 2 : 1)
+constexpr int pow2_at_least(int n) {
+  int p = 32;
+  while (p < n) p *= 2;
+  return p;
+}
+
+// The block of the plan P: workers, the epilogue's pairs per thread, shared
+// memory (float32 rows: the larger ring) and the blocks an SM holds.
+template <class P>
+struct Layout {
+  static constexpr int WT = pow2_at_least(P::NA);  // threads of a worker
+  static constexpr int WPB = NT / WT;            // workers = rows per group
+  static constexpr int PP = (P::NZ / 2 + NT - 1) / NT;  // pairs per thread
+  // the work buffers and the table (the ring comes on top)
+  static constexpr size_t BUFS =
+      (static_cast<size_t>(WPB) * P::WSZ + P::NTW + P::NZ / 2 + 1) * 8;
+  static constexpr size_t STATIC = WPB * NSLOT * 8 + WPB * (WT / 32) * 4;
+  static constexpr size_t SMEM_F32 =
+      WPB * NSLOT * static_cast<size_t>(8 * P::NZ) + BUFS;
+  // two blocks (128 registers a thread) where two fit, else one
+  static constexpr int BLOCKS =
+      2 * (SMEM_F32 + STATIC + BLOCK_RESERVED) <= SM_SMEM ? 2 : 1;
+};
+
+// Rows of a group whose model values the epilogue fetches at a time: up to
+// 4.  With budget, fewer while they and the seed sums (2 PP + 1 pairs,
+// ksa columns: 2 (2 PP + 1)(ksa + q) registers) would pass 56: the
+// mixed-radix plans at two blocks an SM (128 registers a thread), whose
+// ragged pair sets (nbin/4 not a multiple of NT) keep guards live; ptxas
+// spilled them at 60 and 72 (nbin 1280, 1536, 1792; 3328, 3584).
+__host__ __device__ constexpr int rows_ahead(int wpb, int pp, int ksa,
+                                             bool budget) {
+  int q = wpb < 4 ? wpb : 4;
+  while (budget && q > 1 && 2 * (2 * pp + 1) * (ksa + q) > 56) q /= 2;
+  return q;
+}
+
+__device__ __forceinline__ float zpower(float2 z) {
+  return z.x * z.x + z.y * z.y;
+}
+
+// Plan<M, LG2>: nbin/2 = M 2^LG2; KS: seed accumulators per harmonic
+// (kseed <= KS).
+template <int M, int LG2, int KS>
+__global__ void __launch_bounds__(NT, Layout<ppfft::Plan<M, LG2>>::BLOCKS)
 setup_fft_kernel(const Args a) {
-  using P = ppfft::Plan<LG>;
+  using P = ppfft::Plan<M, LG2>;
+  using L = Layout<P>;
   constexpr int NZ = P::NZ;                      // complex points
-  constexpr int WT = P::NA < 32 ? 32 : P::NA;    // threads of a worker
-  constexpr int WPB = NT / WT;                   // workers = rows per group
-  constexpr int PP = NZ / 2 <= NT ? 1 : NZ / 2 / NT;   // pairs per thread
+  constexpr int WT = L::WT, WPB = L::WPB, PP = L::PP;
   constexpr int KSA = KS > 0 ? KS : 1;
-  constexpr int QC = WPB < 4 ? WPB : 4;          // rows fetched at a time
+  constexpr int QC = rows_ahead(WPB, PP, KSA, M > 1 && L::BLOCKS == 2);
 
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t bars[WPB * NSLOT];
-  __shared__ float wred[WPB][WT / 32];
+  __shared__ float wred[WPB][WT / 32];           // L::STATIC bytes
 
   const int tid = threadIdx.x;
   const int w = tid / WT, l = tid % WT;
@@ -281,11 +333,11 @@ setup_fft_kernel(const Args a) {
       float2 v[16];
       if (l < P::NA) {
         if (a.x_is_i16)
-          ppfft::fft_phase0<LG>(
+          ppfft::fft_phase0<P>(
               v, ppfft::FromI16{reinterpret_cast<const short2*>(raw)}, mybuf,
               l);
         else
-          ppfft::fft_phase0<LG>(
+          ppfft::fft_phase0<P>(
               v, ppfft::Plain{reinterpret_cast<const float2*>(raw)}, mybuf,
               l);
       }
@@ -294,28 +346,42 @@ setup_fft_kernel(const Args a) {
         row_load(myring + slot * rowbytes,
                  xrow0 + static_cast<size_t>(r + NSLOT * WPB) * rowbytes,
                  rowbytes, &mybars[slot]);
-      if (l < P::NA) ppfft::fft_phase1<LG>(v, mybuf, l);
+      if (l < P::NA) ppfft::fft_phase1<P>(v, mybuf, l);
       worker_sync(w, WT);
-      if (l < P::NA) ppfft::fft_phase2<LG>(v, mybuf, tw, l);
+      if (l < P::NA) ppfft::fft_phase2<P>(v, mybuf, tw, l);
       if constexpr (P::R3 > 1) {
         worker_sync(w, WT);
-        if (l < P::NA) ppfft::fft_phase3<LG>(v, mybuf, l);
+        if (l < P::NA) ppfft::fft_phase3<P>(v, mybuf, l);
         worker_sync(w, WT);
-        if (l < P::NA) ppfft::fft_phase4<LG>(v, mybuf, tw, l);
+        if (l < P::NA) ppfft::fft_phase4<P>(v, mybuf, tw, l);
       }
-      // Data power from the thread's 16 points of Z, still in registers:
-      // the pair (X_k, X_{NZ-k}) carries the power of (Z_k, Z_{NZ-k}), and
-      // Z_0 = a + i b holds X_0 = a + b and the Nyquist term a - b.
+      // Data power from the thread's points of Z, still in registers: the
+      // pair (X_k, X_{NZ-k}) carries the power of (Z_k, Z_{NZ-k}), and Z_0
+      // = a + i b (thread 0's first point) holds X_0 = a + b and the
+      // Nyquist term a - b.
       float pw = 0.0f;
-      if (l < P::NA) {
+      float2 z0 = make_float2(0.0f, 0.0f);
+      if constexpr (M > 1) {
+        float2 u[P::N2 / WT][M];                  // odd-pass butterflies
+        worker_sync(w, WT);
+        ppfft::odd_load<P, WT>(u, mybuf, l);
+        worker_sync(w, WT);
+        ppfft::odd_store<P, WT>(u, mybuf, tw, l);
+        z0 = u[0][0];
 #pragma unroll
-        for (int j = 1; j < 16; ++j) pw += v[j].x * v[j].x + v[j].y * v[j].y;
-        if (l == 0) {
-          const float ny = v[0].x - v[0].y, dc = v[0].x + v[0].y;
-          pw += ny * ny + (a.f0_fact ? dc * dc : 0.0f);
-        } else {
-          pw += v[0].x * v[0].x + v[0].y * v[0].y;
-        }
+        for (int j = 0; j < P::N2 / WT; ++j)
+#pragma unroll
+          for (int m = j == 0 ? 1 : 0; m < M; ++m) pw += zpower(u[j][m]);
+      } else if (l < P::NA) {
+        z0 = v[0];
+#pragma unroll
+        for (int j = 1; j < 16; ++j) pw += zpower(v[j]);
+      }
+      if (l == 0) {
+        const float ny = z0.x - z0.y, dc = z0.x + z0.y;
+        pw += ny * ny + (a.f0_fact ? dc * dc : 0.0f);
+      } else {
+        pw += zpower(z0);
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -358,7 +424,7 @@ setup_fft_kernel(const Args a) {
             // only the harmonics the model has (k or NZ - k below nh)
             if (k < NZ / 2 && (k < a.nh || NZ - k < a.nh)) {
               const float2 zk = z[k];
-              const float2 zq = z[(NZ - k) & (NZ - 1)];
+              const float2 zq = z[k ? NZ - k : 0];
               const float er = 0.5f * (zk.x + zq.x);
               const float ei = 0.5f * (zk.y - zq.y);
               const float o_r = 0.5f * (zk.x - zq.x);
@@ -436,37 +502,54 @@ seed_reduce_fft_kernel(const float* __restrict__ part,
 }
 
 // dynamic shared memory of one block: the ring, the work buffers, the table
-template <int LG>
+template <class P>
 size_t smem_bytes(size_t rowbytes) {
-  using P = ppfft::Plan<LG>;
-  constexpr int WPB = NT / (P::NA < 32 ? 32 : P::NA);
-  return WPB * NSLOT * rowbytes +
-         (static_cast<size_t>(WPB) * P::WSZ + P::NTW + P::NZ / 2 + 1) * 8;
+  using L = Layout<P>;
+  return L::WPB * NSLOT * rowbytes + L::BUFS;
 }
 
-template <int LG, int KS>
+template <int M, int LG2, int KS>
 cudaError_t launch(const Args& a, dim3 grid, size_t rowbytes,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes<LG>(rowbytes);
+  const size_t smem = smem_bytes<ppfft::Plan<M, LG2>>(rowbytes);
   const cudaError_t e = cudaFuncSetAttribute(
-      setup_fft_kernel<LG, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      setup_fft_kernel<M, LG2, KS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  setup_fft_kernel<LG, KS><<<grid, NT, smem, stream>>>(a);
+  setup_fft_kernel<M, LG2, KS><<<grid, NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int LG>
-cudaError_t launch_seeds(const Args& a, dim3 grid, size_t rowbytes,
-                         cudaStream_t stream) {
-  if (a.kseed == 0) return launch<LG, 0>(a, grid, rowbytes, stream);
-  return launch<LG, MAX_SEEDS>(a, grid, rowbytes, stream);
+// the plan's table size checked, the launch with kseed's accumulators
+template <int M, int LG2>
+cudaError_t run(const Args& a, int ntw, dim3 grid, size_t rowbytes,
+                cudaStream_t stream) {
+  using P = ppfft::Plan<M, LG2>;
+  if (ntw != P::NTW + P::NZ / 2 + 1) return cudaErrorInvalidValue;
+  if (a.kseed == 0) return launch<M, LG2, 0>(a, grid, rowbytes, stream);
+  return launch<M, LG2, MAX_SEEDS>(a, grid, rowbytes, stream);
+}
+
+// Every plan (M, LG2), nbin = 2 M 2^LG2: the powers of two 128 .. 4096,
+// then 256 q for odd q = M 2^(LG2 - 7) <= 16 (nbin 768 .. 3840).
+#define PP_FFT_PLANS(X)                                                  \
+  X(1, 6) X(1, 7) X(1, 8) X(1, 9) X(1, 10) X(1, 11) X(3, 7) X(3, 8)     \
+  X(3, 9) X(5, 7) X(5, 8) X(7, 7) X(7, 8) X(9, 7) X(11, 7) X(13, 7)     \
+  X(15, 7)
+
+cudaError_t dispatch(int m, int lg2, const Args& a, int ntw, dim3 grid,
+                     size_t rowbytes, cudaStream_t stream) {
+#define PP_FFT_CASE(M, LG2) \
+  if (m == M && lg2 == LG2) return run<M, LG2>(a, ntw, grid, rowbytes, stream);
+  PP_FFT_PLANS(PP_FFT_CASE)
+#undef PP_FFT_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x (B, nchan, nbin) int16 (x_is_i16 != 0) or f32, 16-byte aligned, nbin a
-// power of two in 128..4096; tw (ntw, 2) f32: the twiddled passes' tables
+// x (B, nchan, nbin) int16 (x_is_i16 != 0) or f32, 16-byte aligned, nbin
+// 128 or 256 q, q = 1 .. 16; tw (ntw, 2) f32: the twiddled passes' tables
 // then W^k for k <= nbin/4 (ops/setup_dft._fft_tables_np); mr/mi (nchan,
 // nh); scale (B, nchan) or null; w (B, nchan, kseed) or null (kseed = 0;
 // at most 2); outputs gr/gi (B, nchan, nh), sd (B, nchan); with kseed > 0:
@@ -482,22 +565,13 @@ extern "C" int pp_fused_setup_fft(const void* x, int x_is_i16,
                                   int rows_per_tile,
                                   cudaStream_t stream) {
   const int nz = nbin / 2;
-  if (nbin < MIN_NBIN || nbin > MAX_NBIN || (nbin & (nbin - 1)) ||
-      kseed < 0 || kseed > MAX_SEEDS ||
-      rows_per_tile < 1 || nh < 1 || nh > nz + 1 || B < 1 || B > 65535 ||
-      nchan < 1 || (reinterpret_cast<uintptr_t>(x) & 15))
+  if (nbin < MIN_NBIN || nbin > MAX_NBIN || (nbin & 1) || kseed < 0 ||
+      kseed > MAX_SEEDS || rows_per_tile < 1 || nh < 1 || nh > nz + 1 ||
+      B < 1 || B > 65535 || nchan < 1 ||
+      (reinterpret_cast<uintptr_t>(x) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int lg = __builtin_ctz(nz);
-  int want = 0;
-  switch (lg) {
-    case 6: want = ppfft::Plan<6>::NTW; break;
-    case 7: want = ppfft::Plan<7>::NTW; break;
-    case 8: want = ppfft::Plan<8>::NTW; break;
-    case 9: want = ppfft::Plan<9>::NTW; break;
-    case 10: want = ppfft::Plan<10>::NTW; break;
-    default: want = ppfft::Plan<11>::NTW; break;
-  }
-  if (ntw != want + nz / 2 + 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int lg2 = __builtin_ctz(nz);               // nz = m 2^lg2, m odd
+  const int m = nz >> lg2;
   Args a;
   a.x = x;
   a.tw = reinterpret_cast<const float2*>(tw);
@@ -518,15 +592,7 @@ extern "C" int pp_fused_setup_fft(const void* x, int x_is_i16,
   const int ntile = (nchan + rows_per_tile - 1) / rows_per_tile;
   const dim3 grid(ntile, B);
   const size_t rowbytes = static_cast<size_t>(nbin) * (x_is_i16 ? 2 : 4);
-  cudaError_t err;
-  switch (lg) {
-    case 6: err = launch_seeds<6>(a, grid, rowbytes, stream); break;
-    case 7: err = launch_seeds<7>(a, grid, rowbytes, stream); break;
-    case 8: err = launch_seeds<8>(a, grid, rowbytes, stream); break;
-    case 9: err = launch_seeds<9>(a, grid, rowbytes, stream); break;
-    case 10: err = launch_seeds<10>(a, grid, rowbytes, stream); break;
-    default: err = launch_seeds<11>(a, grid, rowbytes, stream); break;
-  }
+  const cudaError_t err = dispatch(m, lg2, a, ntw, grid, rowbytes, stream);
   if (err != cudaSuccess || kseed == 0) return static_cast<int>(err);
   seed_reduce_fft_kernel<<<dim3((nh + 31) / 32, kseed, B), dim3(32, RG), 0,
                            stream>>>(part, gsr, gsi, ntile, nh);

@@ -16,8 +16,9 @@ pulseportraiture_tpu/ops/ct_dft.py `pallas_direct_setup`
 harmonics the capped set is a prefix, so one kernel serves both with
 nh = NQ*M' or nbin/2 + 1.
 
-Kernel note (csrc/setup_fft.cu, `pp_fused_setup_fft`; nbin a power of two
-in 128..4096, at most 2 seed columns):
+Kernel note (csrc/setup_fft.cu, `pp_fused_setup_fft`; nbin = 128 and
+every nbin = 256 q, q = 1..16, the band cap's widths; at most 2 seed
+columns):
   * Bound on the H100: bytes.  An FFT needs 2.5 nbin log2(nbin) flops
     per row against nbin * itemsize bytes read, so the data read (once)
     and Gr/Gi written set the least time; tensor cores are not used.
@@ -25,8 +26,11 @@ in 128..4096, at most 2 seed columns):
     Each row arrives in a two-slot shared-memory ring by cp.async.bulk
     (completion on an mbarrier) and is transformed there as an nbin/2-point
     complex Stockham FFT of the packed row z_j = x_2j + i x_2j+1 by a worker of
-    nbin/32 threads, 16 points each in registers, in passes of radix 16,
-    16 and 2, 4 or 8 (csrc/fft_passes.cuh).  sd is the power of the
+    nbin/32 threads (rounded up to a power of two), 16 points each in
+    registers, in passes of radix 16, 16 and 2, 4 or 8 over the
+    power-of-two factor of nbin/2 and, when nbin/2 = m 2^a with m odd
+    (nbin 768, 1280, ..., 3840), a closing pass of radix m
+    (csrc/fft_passes.cuh).  sd is the power of the
     packed spectrum (which is sum |X_k|^2), summed from those registers
     in a fixed order.  The block then untangles its rows into the real
     transform's harmonics where the model has them and writes Gr/Gi;
@@ -37,7 +41,8 @@ in 128..4096, at most 2 seed columns):
   * fused_setup_fft_reference is the plain torch version of this
     algorithm (same passes, same table, same sd), for the tests.
 
-Kernel note (csrc/setup.cu, `pp_fused_setup`; every other nbin):
+Kernel note (csrc/setup.cu, `pp_fused_setup`; every other nbin: odd, 64,
+1000, 8192, ...):
   * Bound: FP32 FMA throughput of a DFT-as-SGEMM (4 nbin nh flops per
     channel), 150x the factored transform's arithmetic at nbin 2048.
   * Design: a tiled FP32-FMA SGEMM against a host f64 -> f32 trig slab
@@ -156,32 +161,48 @@ def fused_setup_reference(x, mr, mi, f0_fact=False, w=None, scale=None):
     return _cross_spectrum(X, mr, mi, f0_fact, w, scale)
 
 
-# what csrc/setup_fft.cu takes: one block holds a row of nbin samples, its
-# two nbin/2-point work buffers and the twiddle tables in shared memory,
+# what csrc/setup_fft.cu takes: nbin = 128 or 256 q (q = 1..16, so nbin/2
+# = m 2^a with m odd in 1..15); one block holds rows of nbin samples,
+# their nbin/2-point work buffers and the twiddle tables in shared memory,
 # and keeps the seed sums of at most 2 weight columns (the fit's seed
 # stacks two) in registers
 FFT_MIN_NBIN, FFT_MAX_NBIN, FFT_MAX_SEEDS = 128, 4096, 2
+_NT, _SM_SMEM, _BLOCK_RESERVED = 256, 233472, 1024   # csrc/setup_fft.cu
 
 
-def _fft_rows(B: int, nchan: int, nsm: int) -> int:
+def _fft_rows(B: int, nchan: int, nsm: int, per_sm: int = 2) -> int:
     """Channels per block of csrc/setup_fft.cu (the tile of the seed
     partial sums): the largest power of two in 8..64 that still fills
-    nine tenths of the card's block slots, two to an SM.  A larger tile
-    spreads a block's start-up over more rows; a card left half empty
-    costs more."""
+    nine tenths of the card's block slots, per_sm to an SM
+    (_fft_blocks_per_sm).  A larger tile spreads a block's start-up over
+    more rows; a card left half empty costs more."""
     rows = 64
-    while rows > 8 and B * -(-nchan // rows) < 1.8 * nsm:
+    while rows > 8 and B * -(-nchan // rows) < 0.9 * per_sm * nsm:
         rows //= 2
     return rows
 
 
+def _fft_blocks_per_sm(nbin: int) -> int:
+    """Blocks of csrc/setup_fft.cu an SM holds at this nbin (its
+    Layout::BLOCKS): two where two blocks' shared memory fits the SM with
+    float32 rows (the ring of 2 rows a worker, the work buffers, the
+    tables), else one (nbin 3840 and 4096)."""
+    nz = nbin // 2
+    wt = max(32, 1 << (nz // 16 - 1).bit_length())     # a worker's threads
+    wpb = _NT // wt                                     # workers a block
+    smem = wpb * 2 * nbin * 4 + (wpb * (nz + nz // 16) +
+                                 len(_fft_tables_np(nbin))) * 8
+    static = wpb * 2 * 8 + wpb * (wt // 32) * 4
+    return 2 if 2 * (smem + static + _BLOCK_RESERVED) <= _SM_SMEM else 1
+
+
 def setup_route(nbin: int) -> str:
     """Which hand-written kernel fused_setup launches on a CUDA tensor:
-    "fft" (csrc/setup_fft.cu) when nbin is a power of two in
-    FFT_MIN_NBIN..FFT_MAX_NBIN, else "gemm" (csrc/setup.cu: odd nbin, 768,
-    1280, ...)."""
-    pow2 = nbin > 0 and nbin & (nbin - 1) == 0
-    if pow2 and FFT_MIN_NBIN <= nbin <= FFT_MAX_NBIN:
+    "fft" (csrc/setup_fft.cu) for nbin = 128 and every nbin = 256 q, q =
+    1..16 (every nbin cap_supported takes), else "gemm" (csrc/setup.cu:
+    odd nbin, 64, 1000, 8192, ...)."""
+    if nbin == FFT_MIN_NBIN or (nbin % 256 == 0 and
+                                256 <= nbin <= FFT_MAX_NBIN):
         return "fft"
     return "gemm"
 
@@ -198,14 +219,19 @@ def _twiddles_np(nbin: int):
 
 def _fft_passes(nz: int):
     """(radix, p) of each pass of csrc/fft_passes.cuh's nz-point Stockham
-    FFT, p the product of the earlier radices: radix 16, radix 16 again
-    while 16 divides what is left, then one pass of radix 2, 4 or 8."""
+    FFT, nz = m n2 with m odd and n2 a power of two, p the product of the
+    earlier radices: radix 16, radix 16 again while 16 divides what is
+    left of n2, then one pass of radix 2, 4 or 8; then, when m > 1, the
+    odd pass (m, n2)."""
+    n2 = nz & -nz
     passes, p = [], 1
-    while nz // p >= 16 and len(passes) < 2:
+    while n2 // p >= 16 and len(passes) < 2:
         passes.append((16, p))
         p *= 16
-    if p < nz:
-        passes.append((nz // p, p))
+    if p < n2:
+        passes.append((n2 // p, p))
+    if nz > n2:
+        passes.append((nz // n2, n2))
     return passes
 
 
@@ -313,7 +339,7 @@ def fused_setup_fft_reference(x, mr, mi, f0_fact=False, w=None, scale=None):
     Z = _stockham_fft(torch.view_as_complex(
         xx.reshape(*xx.shape[:-1], nz, 2)), tables)
     k = torch.arange(nz // 2)
-    zk, zq = Z[..., k], Z[..., (nz - k) & (nz - 1)].conj()
+    zk, zq = Z[..., k], Z[..., (nz - k) % nz].conj()
     E, O = 0.5 * (zk + zq), 0.5 * (zk - zq)
     Tw = tables[len(tb) - (nz // 2 + 1):][k] * O
     X = torch.empty(Z.shape[:-1] + (nz + 1,), dtype=ct)
@@ -479,14 +505,14 @@ def _launch_gemm(x, mr, mi, f0_fact, w, scale):
 def _launch_fft(x, mr, mi, f0_fact, w, scale, rows=None):
     """csrc/setup_fft.cu on checked arguments (_check): rows channels per
     block (default: _fft_rows; scripts/torch_setup_tune.py sweeps it).  The
-    bulk copies need a 16-byte aligned x (a row of nbin >= 128 samples is
-    a multiple of 16 bytes)."""
+    bulk copies need a 16-byte aligned x (a row of nbin = 128 or 256 q
+    samples is a multiple of 16 bytes)."""
     from pulseportraiture_tpu_torch._build import load_kernels
 
     B, nchan, nbin = x.shape
     if rows is None:
         rows = _fft_rows(B, nchan, torch.cuda.get_device_properties(
-            x.device).multi_processor_count)
+            x.device).multi_processor_count, _fft_blocks_per_sm(nbin))
     nh = mr.shape[-1]
     kseed = 0 if w is None else w.shape[-1]
     if setup_route(nbin) != "fft":

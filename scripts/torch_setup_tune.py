@@ -2,11 +2,12 @@
 """The FFT setup kernel (csrc/setup_fft.cu) on one NVIDIA card: its time
 over the tile size (channels per block), beside the other routes.
 
-    python3 scripts/torch_setup_tune.py [--out tune.json]
+    python3 scripts/torch_setup_tune.py [--nbin 2048] [--out tune.json]
 
 1. Builds the kernels and prints what ptxas says of setup_fft.cu
    (registers, spills, shared memory).
-2. Sweep, at 4096 channels x 2048 bins (chip_smoke.py's data): B=4 with
+2. Sweep, at 4096 channels x nbin bins (chip_smoke.py's data; nbin
+   2048 unless --nbin names another width the FFT route takes): B=4 with
    two seed columns, capped (nh=128), full band (nh=1025) and int16
    capped; one item without seed weights, capped and full band; rows per
    block in {4, 8, 16, 32, 64} and the wrapper's own choice (_fft_rows);
@@ -25,7 +26,7 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def sweep(dev):
+def sweep(dev, nbin):
     import numpy as np
     import torch
 
@@ -34,8 +35,8 @@ def sweep(dev):
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
 
     B = 4
-    data, _, model, _, _, _ = cs.phidm_recipe(dev, B, seed=1)
-    routes = cs.template_routes(model)
+    data, _, model, _, _, _ = cs.phidm_recipe(dev, B, seed=1, nbin=nbin)
+    routes = cs.template_routes(model, nbin)
 
     def on_card(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
@@ -61,7 +62,7 @@ def sweep(dev):
                                          rows=rows), reps=20, warm=3)
         rec["default_rows"] = sdft._fft_rows(
             x.shape[0], x.shape[1], torch.cuda.get_device_properties(
-                dev).multi_processor_count)
+                dev).multi_processor_count, sdft._fft_blocks_per_sm(nbin))
         rec["fft_default_ms"] = cs.cuda_ms(
             lambda: sdft._launch_fft(x, mr, mi, False, ww, sc), reps=20,
             warm=3)
@@ -71,7 +72,7 @@ def sweep(dev):
             lambda: sdft.fused_setup_reference(x, mr, mi, False, ww, sc),
             reps=10)
         rec["bound_ms"], rec["bound_by"] = cs.setup_bound(
-            x.shape[0], cs.NBIN, nh, 0 if ww is None else 2,
+            x.shape[0], nbin, nh, 0 if ww is None else 2,
             x.element_size(), sc is not None)
         out[name] = rec
         print(f"sweep {name}: {json.dumps(rec)}", flush=True)
@@ -80,6 +81,8 @@ def sweep(dev):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--nbin", type=int, default=2048,
+                    help="bins (a width the FFT route takes)")
     ap.add_argument("--out", default=None, help="also write JSON here")
     args = ap.parse_args()
     import torch
@@ -98,7 +101,8 @@ def main():
     for line in _build.build_info["log"].splitlines():
         if "setup_fft" in line or "registers" in line or "spill" in line:
             print("ptxas: " + line.strip(), flush=True)
-    res = {"card": cs.card_line(), "sweep": sweep(dev)}
+    res = {"card": cs.card_line(), "nbin": args.nbin,
+           "sweep": sweep(dev, args.nbin)}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -205,7 +205,7 @@ def test_scattering_moments_kernel_offset_views(cuda, off_r, off_i, off_m):
     (256, False, False, True, 5, True, "fft"),
     (255, False, False, False, 7, False, "gemm"),  # odd nbin: no Nyquist term
     (512, True, True, False, 64, False, "fft"),
-    (768, True, False, False, 70, True, "gemm"),   # 6 x 128: caps, no FFT
+    (768, True, False, False, 70, True, "fft"),    # 6 x 128: radix 3
     (4096, False, False, False, 33, True, "fft"),
     (4096, True, True, False, 70, False, "fft"),
     (128, False, False, True, 33, True, "fft"),
@@ -214,6 +214,22 @@ def test_scattering_moments_kernel_offset_views(cuda, off_r, off_i, off_m):
     (2048, False, False, False, 5, False, "fft"),  # less than one tile
     (4096, True, True, False, 70, True, "fft"),
     (128, False, True, False, 33, False, "fft"),
+    # every odd factor of the mixed-radix plans: int16, ragged last tiles
+    # (70 and 130 channels), K=0, less than one tile
+    (768, False, True, False, 33, True, "fft"),    # 3 x 128
+    (1280, True, False, False, 70, True, "fft"),   # 5 x 128
+    (1280, False, True, False, 5, False, "fft"),
+    (1792, False, False, True, 33, True, "fft"),   # 7 x 128
+    (2304, True, True, False, 130, True, "fft"),   # 9 x 128
+    (2816, False, False, False, 5, False, "fft"),  # 11 x 128
+    (3328, True, False, False, 70, False, "fft"),  # 13 x 128
+    (3840, False, True, False, 33, True, "fft"),   # 15 x 128, one block/SM
+    (3840, True, False, False, 70, True, "fft"),
+    (1536, False, False, False, 130, True, "fft"),  # 3 x 256
+    (3072, True, True, False, 33, True, "fft"),    # 3 x 512
+    (2560, False, False, False, 70, False, "fft"),  # 5 x 256
+    (3584, True, False, False, 33, True, "fft"),   # 7 x 256
+    (1000, False, False, False, 33, True, "gemm"),  # 8 x 125: no FFT plan
 ])
 def test_fused_setup_kernel_matches_twin(cuda, nbin, capped, i16, f0_fact,
                                          nchan, seeds, route):
@@ -273,10 +289,11 @@ def test_fused_setup_kernel_matches_twin(cuda, nbin, capped, i16, f0_fact,
 
 @pytest.mark.cuda
 def test_fused_setup_routes_agree_on_the_card(cuda):
-    """The two hand-written kernels on the same power-of-two input (the
-    SGEMM kernel through its private launcher): the same function."""
+    """The two hand-written kernels on the same input of a width both take
+    (1536 = 6 x 256: the FFT route's radix-3 plan; the SGEMM kernel
+    through its private launcher): the same function."""
     rng = np.random.default_rng(9)
-    B, nchan, nbin = 2, 70, 1024
+    B, nchan, nbin = 2, 70, 1536
     model, data = _portrait(rng, B, nchan, nbin)
     mf = np.fft.rfft(model, axis=-1)
     t = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (

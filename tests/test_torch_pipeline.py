@@ -3,10 +3,11 @@ JAX package's GetTOAs on the same archives and templates.
 
 Archives: 3 epochs x 2 subints of int16 PSRFITS from the JAX package's
 make_fake_pulsar (as tests/test_end_to_end.py makes them), with injected
-per-epoch dDMs.  Templates: a noiseless FITS archive and a .spl spline
-model written by the JAX package's write_spline_model.  Both packages
-fit in float64 on the CPU: TOAs agree within 1 ns, DMs and their errors
-within 1e-6 of the formal error.
+per-epoch dDMs, at 32 x 256 and again at 16 x 768 (a band-cap width that
+is not a power of two).  Templates: a noiseless FITS archive and a .spl
+spline model written by the JAX package's write_spline_model.  Both
+packages fit in float64 on the CPU: TOAs agree within 1 ns, DMs and their
+errors within 1e-6 of the formal error.
 """
 
 import os
@@ -52,11 +53,10 @@ MODEL_PARAMS = [0.0, 0.0,
 NCHAN, NBIN = 32, 256
 
 
-@pytest.fixture(scope="module")
-def ws(tmp_path_factory):
+def _workspace(ws, NCHAN, NBIN):
+    """The archives and templates at NCHAN x NBIN in the directory ws."""
     from scipy.interpolate import splprep
 
-    ws = tmp_path_factory.mktemp("torch_pipeline")
     par = str(ws / "test.par")
     with open(par, "w") as f:
         f.write("\n".join(PAR_LINES) + "\n")
@@ -104,8 +104,48 @@ def ws(tmp_path_factory):
                 path=ws)
 
 
+@pytest.fixture(scope="module")
+def ws(tmp_path_factory):
+    return _workspace(tmp_path_factory.mktemp("torch_pipeline"), NCHAN,
+                      NBIN)
+
+
+@pytest.fixture(scope="module")
+def ws768(tmp_path_factory):
+    return _workspace(tmp_path_factory.mktemp("torch_pipeline_768"), 16, 768)
+
+
 @pytest.mark.parametrize("kind", ["fits", "spl"])
 def test_port_toas_match_jax(ws, kind):
+    _toas_match_jax(ws, kind)
+
+
+def test_port_toas_match_jax_at_768_bins(ws768, monkeypatch):
+    """At 16 x 768 (6 x 128: the FFT setup route's radix-3 plan on the
+    card), the same parity in float64; and the port's float32 run caps
+    its template at the mharm the JAX package's band cap gives the same
+    template."""
+    _toas_match_jax(ws768, "fits")
+    from pulseportraiture_tpu.ops.ct_dft import band_cap_model_ft
+
+    seen = []
+    orig = toas._fit_spectrum
+
+    def spy(model_rot, nbin, f32):
+        out = orig(model_rot, nbin, f32)
+        mf = np.fft.rfft(np.asarray(model_rot, np.float64), axis=-1)
+        seen.append((out[2], band_cap_model_ft(mf.real, mf.imag, nbin)[2]))
+        return out
+    monkeypatch.setattr(toas, "_fit_spectrum", spy)
+    g32 = toas.GetTOAs(ws768["files"], ws768["fits"], device="cpu",
+                       dtype=torch.float32, quiet=True)
+    g32.get_TOAs(quiet=True)
+    assert len(g32.TOA_list) == 6 and seen
+    assert all(mine == theirs is not None for mine, theirs in seen), seen
+    assert g32.mharms == sorted({m for m, _ in seen})
+
+
+def _toas_match_jax(ws, kind):
     want = JGetTOAs(ws["files"], ws[kind], quiet=True)
     want.get_TOAs(quiet=True)
     got = toas.GetTOAs(ws["files"], ws[kind], device="cpu",

@@ -30,22 +30,22 @@ torch.set_num_threads(2)
 NBIN, NCHAN, B = 256, 20, 2
 
 
-def _case(capped, i16, K, f0_fact, seed=11):
+def _case(capped, i16, K, f0_fact, seed=11, nbin=NBIN):
     rng = np.random.default_rng(seed)
-    model = template(NCHAN, NBIN)
+    model = template(NCHAN, nbin)
     data = np.stack([np.roll(model, int(s), axis=-1) for s in
                      rng.integers(-9, 9, B)]) + \
-        rng.normal(0.0, 0.1, (B, NCHAN, NBIN))
+        rng.normal(0.0, 0.1, (B, NCHAN, nbin))
     data = data.astype(np.float32)
     mf = np.fft.rfft(model, axis=-1)
-    mr, mi, mh = jct.band_cap_model_ft(mf.real, mf.imag, NBIN,
+    mr, mi, mh = jct.band_cap_model_ft(mf.real, mf.imag, nbin,
                                        f0_fact=f0_fact)
     if not capped:
         mh = None
         mr, mi = mf.real.astype(np.float32), mf.imag.astype(np.float32)
         if not f0_fact:
             mr[:, 0] = mi[:, 0] = 0.0
-    kvec = jct.ct_perm_np(NBIN, mh)
+    kvec = jct.ct_perm_np(nbin, mh)
     nh = len(kvec)
     x, scale = data, None
     if i16:
@@ -55,7 +55,7 @@ def _case(capped, i16, K, f0_fact, seed=11):
     if K == 2:
         w[:, : NCHAN // 2, 1] = 0.0
     return dict(x=x, scale=scale, w=w, mr=mr, mi=mi, mh=mh, kvec=kvec,
-                nh=nh, f0_fact=f0_fact)
+                nh=nh, f0_fact=f0_fact, nbin=nbin)
 
 
 def _port(c, dtype=torch.float32):
@@ -68,7 +68,8 @@ def _port(c, dtype=torch.float32):
 
 
 def _jax(route, c):
-    mrp, mip = jct.permute_spectrum(c["mr"], c["mi"], NBIN, mharm=c["mh"])
+    mrp, mip = jct.permute_spectrum(c["mr"], c["mi"], c["nbin"],
+                                    mharm=c["mh"])
     kw = dict(f0_fact=c["f0_fact"], w=jnp.asarray(c["w"]),
               scale=None if c["scale"] is None else jnp.asarray(c["scale"]),
               mharm=c["mh"])

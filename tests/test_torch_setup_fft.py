@@ -1,8 +1,10 @@
 """The FFT setup route of ops.setup_dft on the CPU: the plain torch version
 of csrc/setup_fft.cu's own algorithm (fused_setup_fft_reference: packed
-half-length Stockham FFT in passes of radix 16/16/2-8, untangling step, the kernel's twiddle table)
-against the rfft twin and against the JAX package's setup functions, the
-twiddle table itself, and the route rule.
+half-length Stockham FFT in passes of radix 16/16/2-8 and, for nbin/2 =
+m 2^a with m odd, a closing pass of radix m; untangling step, the
+kernel's twiddle table) against the rfft twin and against the JAX
+package's setup functions (at 256 bins and at the mixed-radix widths 768
+and 1280), the twiddle table itself, and the route rule.
 
 Tolerances:
   * float64, against the rfft twin: <= 1e-12 of the largest magnitude of
@@ -75,6 +77,22 @@ def _inputs(nbin, nchan, capped, i16, K, f0_fact, seed=3):
     (4096, 5, False, False, 2, False),
     (4096, 33, True, True, 2, False),
     (4096, 70, True, False, 0, True),
+    # the mixed-radix plans: odd factors 3, 5, 3 (over 256), 9 and 15
+    (768, 5, True, False, 2, False),
+    (768, 33, False, True, 0, False),
+    (768, 70, True, True, 2, False),
+    (1280, 5, False, False, 0, True),
+    (1280, 33, True, True, 2, False),
+    (1280, 70, False, False, 2, False),
+    (1536, 5, True, True, 0, False),
+    (1536, 33, False, False, 2, True),
+    (1536, 70, True, False, 2, False),
+    (2304, 5, False, True, 2, False),
+    (2304, 33, True, False, 0, True),
+    (2304, 70, False, False, 2, False),
+    (3840, 5, True, False, 2, False),
+    (3840, 33, False, True, 2, False),
+    (3840, 70, True, True, 0, False),
 ])
 def test_fft_reference_matches_rfft_twin_float64(nbin, nchan, capped, i16, K,
                                                  f0_fact):
@@ -94,10 +112,11 @@ def test_fft_reference_matches_rfft_twin_float64(nbin, nchan, capped, i16, K,
         assert not got[0][..., 0].any() and not got[1][..., 0].any()
 
 
-@pytest.mark.parametrize("nz", [64, 128, 256, 512, 1024, 2048])
+@pytest.mark.parametrize("nz", [64, 128, 256, 512, 1024, 2048,
+                                192, 320, 448, 576, 704, 832, 960, 1920])
 def test_stockham_stages_match_fft(nz):
-    """Two and three passes, every closing radix: the pass walk is
-    torch.fft.fft."""
+    """Two and three passes, every closing radix, every odd closing pass
+    (3 .. 15): the pass walk is torch.fft.fft."""
     rng = np.random.default_rng(nz)
     z = torch.from_numpy(rng.normal(size=(3, nz)) +
                          1j * rng.normal(size=(3, nz)))
@@ -116,8 +135,12 @@ def test_stockham_stages_match_fft(nz):
     ("pallas_direct", True, False, 2, False),
 ])
 def test_fft_reference_matches_jax_setups(route, capped, i16, K, f0_fact):
-    c = _case(capped, i16, K, f0_fact)
+    _matches_jax(route, _case(capped, i16, K, f0_fact))
 
+
+def _matches_jax(route, c):
+    """fused_setup_fft_reference against the JAX package's setup `route`
+    on the case c, outputs mapped back by ct_perm_np."""
     def t(a):
         return None if a is None else torch.from_numpy(np.asarray(a))
     got = sdft.fused_setup_fft_reference(
@@ -129,7 +152,7 @@ def test_fft_reference_matches_jax_setups(route, capped, i16, K, f0_fact):
     Gr, Gi = unpermute(Gr, c["kvec"]), unpermute(Gi, c["kvec"])
     gsr, gsi = unpermute(gsr, c["kvec"]), unpermute(gsi, c["kvec"])
     assert got[0].shape == (B, NCHAN, c["nh"]) and got[0].dtype == \
-        torch.float32
+        torch.float32 and got[3].shape == (B, c["w"].shape[-1], c["nh"])
     gmax = max(np.abs(Gr).max(), np.abs(Gi).max())
     smax = max(np.abs(gsr).max(), np.abs(gsi).max())
     for g, r, scale in ((got[0], Gr, gmax), (got[1], Gi, gmax),
@@ -138,8 +161,25 @@ def test_fft_reference_matches_jax_setups(route, capped, i16, K, f0_fact):
         assert np.abs(g.numpy() - r).max() <= tol * scale
 
 
+@pytest.mark.parametrize("nbin,route,capped,i16,K,f0_fact", [
+    (768, "direct", True, False, 2, False),
+    (768, "ct", True, True, 2, False),
+    (768, "ct", False, False, 1, True),
+    (1280, "direct", True, True, 1, False),
+    (1280, "ct", True, False, 2, False),
+    (1280, "ct", False, True, 2, False),
+])
+def test_fft_reference_matches_jax_setups_mixed_radix(nbin, route, capped,
+                                                      i16, K, f0_fact):
+    """At widths that are not a power of two (6 and 10 x 128: the radix-3
+    and radix-5 plans), against the JAX package's f32-class setups:
+    direct_capped_setup and ct_setup (interpret mode), 1e-5."""
+    _matches_jax(route, _case(capped, i16, K, f0_fact, nbin=nbin))
+
+
 @pytest.mark.parametrize("nbin,i16", [(512, False), (2048, False),
-                                      (2048, True)])
+                                      (2048, True), (1280, False),
+                                      (1280, True)])
 def test_fft_reference_is_float32_class(nbin, i16):
     """In float32 the factored transform is no worse than the float32
     rfft twin (x2): both are eps log2(nbin) algorithms."""
@@ -156,7 +196,7 @@ def test_fft_reference_is_float32_class(nbin, i16):
     assert 0.0 < errs["fft"] <= 2.0 * errs["rfft"]
 
 
-@pytest.mark.parametrize("nbin", [128, 2048, 4096])
+@pytest.mark.parametrize("nbin", [128, 2048, 4096, 1536, 3840])
 def test_twiddle_table(nbin):
     tw = sdft._twiddles_np(nbin)
     assert tw.dtype == np.complex128 and tw.shape == (nbin,)
@@ -170,13 +210,18 @@ def test_twiddle_table(nbin):
         assert np.all(np.abs(g32 - r32) <= np.spacing(np.maximum(
             np.abs(r32), np.float32(2.0 ** -24))))
     # the kernel's table: runs r = 1 .. R-1 of each twiddled pass (R, p),
-    # then W^k for k <= nbin/4, every entry one of tw
+    # then W^k for k <= nbin/4, every entry one of tw; a mixed-radix plan
+    # (nbin/2 = m 2^a, m odd) closes with the pass (m, 2^a)
     tb = sdft._fft_tables_np(nbin)
     nz = nbin // 2
     passes = sdft._fft_passes(nz)
+    m = nz // (nz & -nz)
     assert passes[0] == (16, 1) and passes[1][1] == 16
     assert int(np.prod([R for R, _ in passes])) == nz
-    assert all(R in (2, 4, 8, 16) for R, _ in passes) and len(passes) <= 3
+    pow2 = passes[:-1] if m > 1 else passes
+    assert all(R in (2, 4, 8, 16) for R, _ in pow2) and len(pow2) <= 3
+    if m > 1:
+        assert passes[-1] == (m, nz // m)
     off = 0
     for R, p in passes[1:]:
         k = np.arange(p)
@@ -192,10 +237,37 @@ def test_twiddle_table(nbin):
 @pytest.mark.parametrize("nbin,want", [
     (128, "fft"), (256, "fft"), (512, "fft"), (1024, "fft"), (2048, "fft"),
     (4096, "fft"), (64, "gemm"), (8192, "gemm"), (255, "gemm"),
-    (768, "gemm"), (1280, "gemm"), (0, "gemm"),
+    (768, "fft"), (1280, "fft"), (0, "gemm"), (1536, "fft"),
+    (3840, "fft"), (1000, "gemm"), (384, "gemm"), (4352, "gemm"),
 ])
 def test_setup_route(nbin, want):
     assert sdft.setup_route(nbin) == want
+
+
+def test_fft_route_takes_every_width_the_band_cap_takes():
+    """The TPU setup kernels' domain (the band cap's nbin = NQ*128, NQ
+    even in 2..32: 256 q, q = 1..16) is the FFT route's, and each of its
+    widths has a plan (odd factor <= 15 over a power of two >= 128)."""
+    widths = [n for n in range(1, 8193) if sdft.cap_supported(n)]
+    assert widths == [256 * q for q in range(1, 17)]
+    assert [n for n in range(1, 8193) if sdft.setup_route(n) == "fft"] == \
+        [128] + widths
+    for nbin in widths:
+        nz = nbin // 2
+        m = nz // (nz & -nz)
+        assert m <= 15 and (m == 1 or nz // m >= 128)
+
+
+def test_fft_blocks_per_sm():
+    """Two blocks an SM wherever their shared memory fits (float32 rows);
+    one at 3840 (15 x 128) and 4096: what the kernel's launch bounds say,
+    and the tile rule fills the card by it."""
+    got = {n: sdft._fft_blocks_per_sm(n) for n in [128] +
+           [256 * q for q in range(1, 17)]}
+    assert {n for n, b in got.items() if b == 1} == {3840, 4096}
+    assert set(got.values()) == {1, 2}
+    assert sdft._fft_rows(1, 4096, 132, 1) == 32
+    assert sdft._fft_rows(1, 4096, 132, 2) == 16
 
 
 @pytest.mark.parametrize("B,nchan,want", [
