@@ -20,9 +20,11 @@ parallel), then:
      3, 5, 3, 15), B=4, K=2, capped and full band, float32 and int16 +
      scale: the same checks, the same bits from a second call, timed
      beside the same library calls and csrc/setup.cu on the same inputs;
-     and the setup's SGEMM route (csrc/setup.cu) at a width the FFT route
-     does not take, 4096 channels x 1000 bins, full band (nh=501) and a
-     prefix (nh=125), timed beside the same two library calls;
+     the same at every power of two 64 .. 8192 (setup_pow2: B=64 up to
+     512 bins, B=4 above; capped where the band cap applies); and the
+     setup's SGEMM route (csrc/setup.cu) at a width the FFT route does not
+     take, 4096 channels x 1000 bins, full band (nh=501) and a prefix
+     (nh=125), timed beside the same two library calls;
   3. the scattering-moments kernel against its float64 twin at B=32,
      nh=128 and 1025, phases in [-3, 3] turns, taus around
      8e-3 (nu/1500)^-4 rot over two decades: each of the 9 sums within
@@ -35,7 +37,9 @@ parallel), then:
      torch.Generator: every item converged, |phi - phi_inj| <= 5 sigma,
      and the card's float32 kernel route agrees with the float64 twin
      route on the CPU within 0.01 sigma on a subset; prints fits/s; then
-     the same at 4096 x 1536 (the radix-3 plan);
+     the same at 4096 x 1536 (the radix-3 plan), at 4096 x 8192 (full
+     band only: three radix-16 passes; the twin on 2 items) and at 4096 x
+     64 (full band: the packed worker);
   5. the scattering fit (phi, DM, tau, alpha), log10 tau, at 4096 x 2048,
      B=32, capped and full band, on scripts/tpu_scaling.py's --scat recipe
      generated on the card: every item converged, phi, DM, log10 tau at
@@ -45,7 +49,8 @@ parallel), then:
   6. runs the pipeline a user runs (GetTOAs(..., device="cuda")) on two
      int16 PSRFITS archives x 8 subints at 4096 x 2048 written here, with
      a float32 noiseless template: TOA count and injected dDM within 3
-     sigma; then one such archive at 4096 x 1536;
+     sigma; then one such archive at 4096 x 1536 and one at 4096 x 8192
+     (the template not capped there);
   7. the same with get_TOAs(fit_scat=True) on two scattered archives x 4
      subints (the template unscattered): TOA count, scat_time within 3
      sigma of the injection at scat_ref_freq, injected dDM within 3 sigma;
@@ -123,8 +128,8 @@ ptxas's registers and spills are printed for every kernel; a spill in the
 setup FFT or the scattering kernel fails the run.  Launch counts are
 reset before each pipeline run (the main paths) and
 read after it; every kernel of that path must have launched there, and
-every setup launch of a path (at 2048 bins, one at 1536) must have taken
-the FFT route.  The
+every setup launch of a path (at 2048 bins, one at 1536, one at 8192)
+must have taken the FFT route.  The
 line before last is a JSON summary of the kernels (times, the bound from
 this run's shapes, the library call's time); the last is {"ok": true,
 "device": ...}.  Exits non-zero without a card, or when any phase fails.
@@ -239,16 +244,20 @@ def shifted_data(mft, shifts, gen, noise, dev, nbin=NBIN):
 
 def template_routes(model, nbin=NBIN):
     """The template's split spectra (mr, mi), host float64: "capped", the
-    band-capped prefix (band_cap_model_ft), and "full_band"."""
+    band-capped prefix (band_cap_model_ft), where the band cap applies
+    (cap_supported), and "full_band"."""
     import numpy as np
 
     from pulseportraiture_tpu_torch.fitters.portrait import template_spectrum
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
-    mf = np.fft.rfft(np.asarray(model, np.float64), axis=-1)
-    mr_c, mi_c, mh = sdft.band_cap_model_ft(mf.real, mf.imag, nbin)
-    nh_c = sdft.cap_nharm(nbin, mh)
-    return {"capped": (mr_c[:, :nh_c], mi_c[:, :nh_c]),
-            "full_band": template_spectrum(model)}
+    out = {}
+    if sdft.cap_supported(nbin):
+        mf = np.fft.rfft(np.asarray(model, np.float64), axis=-1)
+        mr_c, mi_c, mh = sdft.band_cap_model_ft(mf.real, mf.imag, nbin)
+        nh_c = sdft.cap_nharm(nbin, mh)
+        out["capped"] = (mr_c[:, :nh_c], mi_c[:, :nh_c])
+    out["full_band"] = template_spectrum(model)
+    return out
 
 
 def phidm_recipe(dev, B, seed=0, nbin=NBIN):
@@ -504,45 +513,89 @@ def setup_case(tag, xx, mr_t, mi_t, wt, sc, nbin, sgemm=False):
 MIXED_NBINS = (768, 1280, 1536, 3840)
 
 
-def setup_mixed_radix(dev):
-    """The FFT route's mixed-radix plans at 4096 channels x nbin in
-    MIXED_NBINS, B=4, K=2: capped (the band cap's nh) and full band, each
-    with float32 rows and with int16 rows + scale, through setup_case with
-    csrc/setup.cu timed beside it (data from seeds of their own)."""
+def setup_inputs(dev, nbin, B):
+    """A setup phase's data at 4096 channels x nbin (seeds of their own,
+    so the other phases' draws stay what they were): bench_template
+    shifted by one U(-0.05, 0.05) rot draw per item plus noise, as
+    float32 rows (B, NCHAN, nbin) and as int16 rows + scale; seed
+    weights (B, NCHAN, 2), the second column zero on half the band; and
+    the template's routes (template_routes) as float32 on the card."""
     import numpy as np
     import torch
 
     from pulseportraiture_tpu_torch.io.native import quantize_i2
-    from pulseportraiture_tpu_torch.ops import setup_dft as sdft
 
-    B = 4
     freqs = np.linspace(1100.0, 1900.0, NCHAN)
+    model = bench_template(freqs, nbin)
+    gen = torch.Generator(device=dev).manual_seed(nbin)
+    mft = torch.fft.rfft(torch.as_tensor(model, dtype=torch.float64,
+                                         device=dev), dim=-1)
+    shifts = torch.as_tensor(np.random.default_rng(nbin).uniform(
+        -0.05, 0.05, (B, 1)), device=dev).expand(B, NCHAN)
+    x = shifted_data(mft, shifts, gen, NOISE, dev, nbin)
+    raw, scl, _ = quantize_i2(x.cpu().numpy())
+    raw = torch.from_numpy(raw).to(dev)
+    scl = torch.from_numpy(scl.astype(np.float32)).to(dev)
     wt = torch.ones((B, NCHAN, 2), dtype=torch.float32, device=dev)
     wt[:, : NCHAN // 2, 1] = 0.0
+    routes = {name: tuple(torch.as_tensor(np.ascontiguousarray(a),
+                                          dtype=torch.float32, device=dev)
+                          for a in ri)
+              for name, ri in template_routes(model, nbin).items()}
+    return x, raw, scl, wt, routes
+
+
+def setup_mixed_radix(dev):
+    """The FFT route's mixed-radix plans at 4096 channels x nbin in
+    MIXED_NBINS, B=4, K=2: capped (the band cap's nh) and full band, each
+    with float32 rows and with int16 rows + scale, through setup_case with
+    csrc/setup.cu timed beside it (setup_inputs' data)."""
+    from pulseportraiture_tpu_torch.ops import setup_dft as sdft
+
     rec = {}
     for nbin in MIXED_NBINS:
         if sdft.setup_route(nbin) != "fft":
             raise AssertionError(f"nbin={nbin} does not take the FFT route")
-        model = bench_template(freqs, nbin)
-        gen = torch.Generator(device=dev).manual_seed(nbin)
-        mft = torch.fft.rfft(torch.as_tensor(model, dtype=torch.float64,
-                                             device=dev), dim=-1)
-        shifts = torch.as_tensor(np.random.default_rng(nbin).uniform(
-            -0.05, 0.05, (B, 1)), device=dev).expand(B, NCHAN)
-        x = shifted_data(mft, shifts, gen, NOISE, dev, nbin)
-        raw, scl, _ = quantize_i2(x.cpu().numpy())
-        raw = torch.from_numpy(raw).to(dev)
-        scl = torch.from_numpy(scl.astype(np.float32)).to(dev)
-        for route, (mr, mi) in template_routes(model, nbin).items():
-            mr_t = torch.as_tensor(np.ascontiguousarray(mr),
-                                   dtype=torch.float32, device=dev)
-            mi_t = torch.as_tensor(np.ascontiguousarray(mi),
-                                   dtype=torch.float32, device=dev)
+        x, raw, scl, wt, routes = setup_inputs(dev, nbin, 4)
+        for route, (mr_t, mi_t) in routes.items():
             for rows, xx, sc in (("f32", x, None), ("i16", raw, scl)):
                 name = f"{nbin}_{route}_{rows}"
                 rec[name] = dict(nbin=nbin, nh=mr_t.shape[-1], **setup_case(
                     name, xx, mr_t, mi_t, wt, sc, nbin, sgemm=True))
         del x, raw, scl
+    return rec
+
+
+# the powers of two the FFT route takes
+POW2_NBINS = tuple(1 << n for n in range(6, 14))
+
+
+def setup_pow2(dev):
+    """The FFT route at every power of two in POW2_NBINS (64 .. 8192) at
+    4096 channels, B=64 up to 512 bins (so that a time is not one launch's
+    latency) and B=4 above, K=2: full band and capped where the band cap
+    applies, each with float32 rows and with int16 rows + scale, through
+    setup_case with csrc/setup.cu timed beside it (setup_inputs' data;
+    scripts/torch_setup_pow2.py times the same cases in another
+    checkout)."""
+    import torch
+
+    from pulseportraiture_tpu_torch.ops import setup_dft as sdft
+
+    rec = {}
+    for nbin in POW2_NBINS:
+        if sdft.setup_route(nbin) != "fft":
+            raise AssertionError(f"nbin={nbin} does not take the FFT route")
+        B = 64 if nbin <= 512 else 4
+        x, raw, scl, wt, routes = setup_inputs(dev, nbin, B)
+        for route, (mr_t, mi_t) in routes.items():
+            for rows, xx, sc in (("f32", x, None), ("i16", raw, scl)):
+                name = f"{nbin}_{route}_{rows}"
+                rec[name] = dict(nbin=nbin, B=B, nh=mr_t.shape[-1],
+                                 **setup_case(name, xx, mr_t, mi_t, wt, sc,
+                                              nbin, sgemm=True))
+        del x, raw, scl
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -748,8 +801,10 @@ def phase_scat_kernel(dev):
     return rec
 
 
-def phase_fit(dev, nbin=NBIN):
-    """Batched fits at 4096 x nbin, B=64, capped and full band."""
+def phase_fit(dev, nbin=NBIN, nc=8):
+    """Batched fits at 4096 x nbin, B=64, capped (where the band cap
+    applies) and full band; the float64 twin route on the CPU on nc
+    items."""
     import torch
 
     from pulseportraiture_tpu_torch.config import DCONST
@@ -803,7 +858,6 @@ def phase_fit(dev, nbin=NBIN):
             raise AssertionError(f"fit[{name}]{at} off the injection: "
                                  f"{zphi:.2f}, {zdm:.2f} sigma")
         # the same data through the float64 twin route on the CPU
-        nc = 8
         cpu = torch.device("cpu")
         ref = fit_portrait_full_batch(
             data[:nc].cpu(), mft_ri, *args(cpu, torch.float64, nc),
@@ -1039,10 +1093,11 @@ def read_launches():
 def phase_pipeline(rng, nbin=NBIN, narch=2):
     """GetTOAs on the card (narch archives x 8 subints x nbin bins);
     returns the launch counts of its run, its archives (files, dDMs,
-    template) and its TOAs."""
+    template), its TOAs and a record of the run."""
     import numpy as np
 
     from pulseportraiture_tpu_torch.io.tim import write_TOAs
+    from pulseportraiture_tpu_torch.ops import setup_dft as sdft
     from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
 
     t0 = time.perf_counter()
@@ -1068,19 +1123,23 @@ def phase_pipeline(rng, nbin=NBIN, narch=2):
     if len(lines) != 8 * narch:
         raise AssertionError(f"{tag}: expected {8 * narch} TOAs, got "
                              f"{len(lines)}")
-    rec = np.asarray(gt.DeltaDM_means)
+    ddm = np.asarray(gt.DeltaDM_means)
     err = np.asarray(gt.DeltaDM_errs)
-    log(f"{tag}: DeltaDM {rec.tolist()} +- {err.tolist()}, injected "
+    log(f"{tag}: DeltaDM {ddm.tolist()} +- {err.tolist()}, injected "
         f"{dDMs}")
-    if not np.all(np.abs(rec - dDMs) <= 3 * err):
+    if not np.all(np.abs(ddm - dDMs) <= 3 * err):
         raise AssertionError(f"{tag}: injected dDM not recovered within 3 "
                              "sigma")
-    if not gt.mharms or min(gt.mharms) <= 0:
+    if sdft.cap_supported(nbin) and (not gt.mharms or min(gt.mharms) <= 0):
         raise AssertionError(f"the f32 template did not cap: {gt.mharms}")
     if min(launches["fused_setup"], launches["phase_moments"]) <= 0:
         raise AssertionError(f"a kernel did not launch on the main path: "
                              f"{launches}")
-    return launches, (files, dDMs, tmpl), gt.TOA_list
+    rec = dict(nbin=nbin, ntoa=len(lines), wall_s=wall,
+               delta_dm=ddm.tolist(), delta_dm_err=err.tolist(),
+               injected=list(dDMs), mharms=list(gt.mharms),
+               launches=launches)
+    return launches, (files, dDMs, tmpl), gt.TOA_list, rec
 
 
 def phase_pipeline_scat(rng):
@@ -2139,23 +2198,31 @@ def main():
     rng = np.random.default_rng(0)
     krec = phase_kernels(dev, rng)
     xrec = setup_mixed_radix(dev)
+    prec = setup_pow2(dev)
     grec = setup_gemm_route(dev)
     srec = phase_scat_kernel(dev)
     mrec = phase_merged_kernel(dev)
     fits = phase_fit(dev)
     fits_1536 = phase_fit(dev, 1536)
+    # the widest width (full band only: no band cap) and the narrowest;
+    # at 8192 the float64 CPU twin on 2 items keeps it under ~30 s
+    fits_8192 = phase_fit(dev, 8192, nc=2)
+    fits_64 = phase_fit(dev, 64)
     scat_fits = phase_scat_fit(dev)
     gm_fits = phase_gm_fit(dev)
     try:
         os.makedirs(WORK, exist_ok=True)
         prof = phase_profiling(dev)
         paths, unsharded = {}, {}
-        paths["pipeline"], pipe_arch, unsharded["pipeline"] = \
+        paths["pipeline"], pipe_arch, unsharded["pipeline"], _ = \
             phase_pipeline(rng)
-        # one archive at a width that is not a power of two (a generator
-        # of its own: the other phases' draws stay what they were)
-        paths["pipeline_1536"], _, _ = phase_pipeline(
+        # one archive at a width that is not a power of two and one at
+        # the widest (generators of their own: the other phases' draws
+        # stay what they were)
+        paths["pipeline_1536"], _, _, _ = phase_pipeline(
             np.random.default_rng(1536), nbin=1536, narch=1)
+        paths["pipeline_8192"], _, _, pipeline_8192 = phase_pipeline(
+            np.random.default_rng(8192), nbin=8192, narch=1)
         paths["pipeline_fit_scat"], scat_arch, \
             unsharded["pipeline_fit_scat"] = phase_pipeline_scat(rng)
         paths["pipeline_gm"], paths["pipeline_gm_fit_scat"], pipeline_gm, \
@@ -2178,8 +2245,8 @@ def main():
         paths.update(tb_paths)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    # every path runs at 2048 bins (pipeline_1536 at 1536): its setup
-    # launches are the FFT route's
+    # every path runs at 2048 bins (pipeline_1536 and pipeline_8192 at
+    # theirs): its setup launches are the FFT route's
     for path, c in paths.items():
         if c["fused_setup_routes"]["fft"] != c["fused_setup"]:
             raise AssertionError(f"{path}: fused_setup launched "
@@ -2206,11 +2273,12 @@ def main():
                   "one_item_full_band")},
                    routes_by_path={p: c["fused_setup_routes"]
                                    for p, c in paths.items()},
-                   mixed_radix=xrec,
+                   mixed_radix=xrec, pow2_widths=prec,
                    second_route=dict(
                        route="cuda",
                        source="pulseportraiture_tpu_torch/csrc/setup.cu",
-                       taken_when="nbin is neither 128 nor 256 q, q = 1..16",
+                       taken_when="nbin is none of 64, 128, 8192 and 256 q, "
+                                  "q = 1..16",
                        **grec))),
         entry("phase_moments", "pulseportraiture_tpu_torch/csrc/moments.cu",
               tpu + "pallas_moments.py:323",
@@ -2228,7 +2296,9 @@ def main():
               "pulseportraiture_tpu_torch/csrc/moments_merged.cu",
               "scripts/tpu_moments_layout.py:138", [], mrec["subint"],
               {"probe": mrec["probe"]})],
-        "fits": fits, "fits_1536": fits_1536, "scattering_fits": scat_fits,
+        "fits": fits, "fits_1536": fits_1536, "fits_8192": fits_8192,
+        "fits_64": fits_64, "pow2_widths": prec,
+        "pipeline_8192": pipeline_8192, "scattering_fits": scat_fits,
         "gm_fits": gm_fits,
         "pipeline_gm": pipeline_gm, "zap": zap_rec,
         "narrowband": narrowband, "narrowband_fit_scat": narrowband_scat,

@@ -1,12 +1,13 @@
 // Register-resident passes of a Stockham autosort FFT of NZ = M 2^LG2
-// complex points, M odd in 1..15 and 64 <= 2^LG2 <= 2048 (2^LG2 >= 128
+// complex points, M odd in 1..15 and 32 <= 2^LG2 <= 4096 (2^LG2 >= 128
 // when M > 1), for csrc/setup_fft.cu.
 //
 // NZ/16 threads share one transform and each holds 16 points in registers
 // in every power-of-two pass.  The passes are radix 16, then radix 16 again
-// while 16 divides what is left of 2^LG2, then one pass of radix 2, 4 or 8
-// (2^LG2 = 1024: 16, 16, 4): two or three trips through shared memory
-// instead of the five or six of a radix-4 walk.  A pass of radix R with p
+// while 16 divides what is left of 2^LG2, then one pass of radix 2, 4, 8 or
+// 16 (2^LG2 = 32: 16, 2; 1024: 16, 16, 4; 4096: 16, 16, 16): two or three
+// trips through shared memory instead of the five or six of a radix-4
+// walk.  A pass of radix R with p
 // the product of the earlier radices takes, for butterfly i < NZ/R, the
 // points i + r NZ/R, twiddles point r by e^{-2 pi i r k/(R p)} (k = i mod
 // p), transforms them in registers and writes result m to (i - k) R + k +
@@ -18,11 +19,12 @@
 // thread do not split into M-point butterflies, so that pass has a thread
 // layout of its own: the worker's WT threads (a power of two, WT <= 2^LG2)
 // take the 2^LG2 butterflies i = l + WT j, j < 2^LG2/WT, M points each
-// (at most 15 a thread).  Its M-point DFT pairs the points r and M - r
+// (at most 15), one after another in place.  Its M-point DFT pairs the points r and M - r
 // and takes cos and sin of 2 pi j/M from a table of float64 values rounded
 // once (kOddTrig).
 //
-// Twiddles come from a table (ops/setup_dft._fft_tables_np): per twiddled
+// Twiddles come from a table (ops/setup_dft._fft_tables_np), in shared or
+// global memory: per twiddled
 // pass the runs r = 1 .. R-1 of p entries each.  The first pass has p = 1
 // and no twiddles; its 16 results are neighbours, so it writes a padded
 // layout (one float2 of padding after every 16) that keeps the 16 threads
@@ -187,7 +189,7 @@ __device__ __forceinline__ void dft_odd(float2* a) {
 // The passes of an NZ = M 2^LG2 point transform.
 template <int M_, int LG2>
 struct Plan {
-  static_assert(LG2 >= 6 && LG2 <= 11, "64 <= 2^LG2 <= 2048");
+  static_assert(LG2 >= 5 && LG2 <= 12, "32 <= 2^LG2 <= 4096");
   static_assert(M_ == 1 || (M_ % 2 == 1 && M_ <= 15 && LG2 >= 7),
                 "M odd in 3..15 over at least 128 points");
   static constexpr int M = M_;
@@ -294,31 +296,30 @@ __device__ __forceinline__ void fft_phase4(float2* v, float2* buf,
   pass_store<P::R3, P::NZ, 256, false>(v, buf, tw + P::TW3, l);
 }
 
-// The odd pass (P::M > 1), by all WT threads of the worker: load thread
-// l's butterflies i = l + WT j (u[j][r] = point i + r N2) ...
-template <class P, int WT, int J>
-__device__ __forceinline__ void odd_load(float2 (&u)[J][P::M],
-                                         const float2* buf, int l) {
-#pragma unroll
-  for (int j = 0; j < J; ++j)
-#pragma unroll
-    for (int r = 0; r < P::M; ++r) u[j][r] = buf[l + WT * j + r * P::N2];
-}
-// ... then twiddle, transform and write them: result m of butterfly i to
-// i + m N2 (natural order)
-template <class P, int WT, int J>
-__device__ __forceinline__ void odd_store(float2 (&u)[J][P::M], float2* buf,
-                                          const float2* tw, int l) {
+// The odd pass (P::M > 1), by all WT threads of the worker: thread l's
+// butterflies i = l + WT j, j < N2/WT.  Butterfly i reads the points i +
+// r N2 and writes its result m to i + m N2 (natural order): the same
+// points, which no other butterfly touches, so each is loaded,
+// twiddled, transformed and written in turn with no barrier between its
+// loads and its stores, and only its M points are held in registers.
+// seen(j, u) is called with each transformed butterfly.
+template <class P, int WT, class Seen>
+__device__ __forceinline__ void odd_pass(float2* buf, const float2* tw,
+                                         int l, Seen&& seen) {
   const float2* twm = tw + P::TWM;
 #pragma unroll
-  for (int j = 0; j < J; ++j) {
+  for (int j = 0; j < P::N2 / WT; ++j) {
     const int i = l + WT * j;
+    float2 u[P::M];
+#pragma unroll
+    for (int r = 0; r < P::M; ++r) u[r] = buf[i + r * P::N2];
 #pragma unroll
     for (int r = 1; r < P::M; ++r)
-      u[j][r] = cmul(u[j][r], twm[(r - 1) * P::N2 + i]);
-    dft_odd<P::M>(u[j]);
+      u[r] = cmul(u[r], twm[(r - 1) * P::N2 + i]);
+    dft_odd<P::M>(u);
 #pragma unroll
-    for (int m = 0; m < P::M; ++m) buf[i + m * P::N2] = u[j][m];
+    for (int m = 0; m < P::M; ++m) buf[i + m * P::N2] = u[m];
+    seen(j, u);
   }
 }
 

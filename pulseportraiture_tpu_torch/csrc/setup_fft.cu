@@ -8,11 +8,12 @@
 // NQ*M') and ct_setup (_ct_setup_kernel_factory; the full band, nh =
 // nbin/2 + 1).  Harmonics are a natural-order prefix k < nh, so the two
 // differ only in how many harmonics the epilogue reads the model for and
-// writes; the transform is full either way.  It takes nbin = 128 and every
-// nbin = 256 q, q = 1 .. 16: every width the TPU kernels take (the band
-// cap's NQ*128, NQ even).  (csrc/setup.cu computes the same function as a
-// DFT-as-SGEMM, 4 nbin nh flops per row; it serves the nbin this kernel
-// does not take: odd nbin, 64, 1000, 8192, ...)
+// writes; the transform is full either way.  It takes nbin = 64, 128,
+// 8192 and every nbin = 256 q, q = 1 .. 16: every width the TPU kernels
+// take (the band cap's NQ*128, NQ even) and the powers of two around them.
+// (csrc/setup.cu computes the same function as a DFT-as-SGEMM, 4 nbin nh
+// flops per row; it serves the nbin this kernel does not take: odd nbin,
+// 1000, 256 q for q in 17 .. 31, ...)
 //
 // Bound on the H100: bytes.  Once the DFT is factored the function needs
 // 2.5 nbin log2(nbin) flops per row against nbin * itemsize bytes read, so
@@ -20,59 +21,76 @@
 // arithmetic.  Tensor cores are deliberately not used: a tensor-core DFT
 // does 150x the arithmetic of the factored transform at a worse accuracy
 // class (TF32 or a single bf16 pass), for a function that is byte-bound.
-// (As measured on an H100 the kernel runs at 1.5-3.4x its byte bound at
-// 2048 bins and 1.8-5.2x at 768, 1280, 1536 and 3840, held by the rate at
-// which 16 warps an SM get their instructions out.)
+// (As measured on an H100 the kernel runs at 1.6-5.3x its byte bound over
+// 64-8192 bins, the capped int16 cases highest, held by the rate at which
+// the warps of an SM get their instructions out.)
 //
 // Design:
 //   * One channel row lives in shared memory from its arrival to its
 //     outputs.  The real nbin-point transform runs as an nbin/2-point
 //     complex FFT of z_j = x_2j + i x_2j+1 (the raw row read as float2, or
 //     as short2 and converted on the way: int16 ingest moves half the
-//     bytes).  A worker of nbin/32 threads, rounded up to a power of two
-//     and at least a warp, owns a row; each thread holds 16 points in
-//     registers through passes of radix 16, 16 and 2, 4 or 8
-//     (csrc/fft_passes.cuh: Stockham autosort, no bit reversal, in place in
-//     the worker's buffer, a named barrier of the worker's warps between a
-//     pass's loads and its stores): two or three trips through shared
-//     memory, and no block-wide barrier inside a transform.  When nbin/2 =
-//     M 2^a with M odd (3 .. 15: nbin 768, 1280, ..., 3840), the same
-//     passes take the power-of-two factor and one more pass of radix M
+//     bytes).  A worker of NA = nbin/32 threads owns a row; each thread
+//     holds 16 points in registers through passes of radix 16, 16 and 2,
+//     4, 8 or 16 (csrc/fft_passes.cuh: Stockham autosort, no bit reversal,
+//     in place in the worker's buffer, a barrier of the worker's threads
+//     between a pass's loads and its stores): two or three trips through
+//     shared memory, and no block-wide barrier inside a transform.  When
+//     nbin/2 = M 2^a with M odd (3 .. 15: nbin 768, 1280, ..., 3840), the
+//     same passes take the power-of-two factor and one more pass of radix M
 //     closes the transform in natural order, every thread of the worker
-//     holding the M points of 2^a/WT butterflies (one more trip; the idle
-//     lanes of the rounded-up worker wait at its barriers).  A block of 256
-//     threads runs 256/WT workers (4 at nbin 2048), one row each: a group
-//     of rows.
+//     holding the M points of 2^a/WT butterflies (one more trip).
+//   * The worker (worker_threads): below a warp (nbin 64 .. 512: 2 .. 16
+//     threads) several rows share a warp, the packed worker, and its
+//     barrier is a __syncwarp of its lanes: a warp-sized worker would idle
+//     50-94% of its lanes there.  From a warp up it is rounded up to a
+//     power of two (a named barrier counts whole warps; the idle lanes of a
+//     mixed plan's worker wait at its barriers).  On the H100 the packed
+//     worker was 1.3-3.7x faster than a warp-sized one at 64-256 bins and
+//     faster in three of four cases at 512 (PERF.md).
+//   * A block of 256 threads runs 256/WT workers, one row each: a group of
+//     rows (8 at nbin 1024, 128 at 64).  At nbin 8192 a worker is 256
+//     threads and the block 512, two workers: one worker a block would
+//     leave an SM 8 warps to hide its latencies with.  Two workers' rows
+//     and buffers fill the SM's shared memory, so that plan reads its
+//     twiddle table from global memory (through L1) instead of a copy in
+//     shared memory.
 //   * No sincosf: pass twiddles and W^k come from a host table built in
 //     float64 and cast to float32, laid out per pass so that neighbouring
 //     threads read neighbouring entries, copied to shared memory once per
-//     block; the radix-16 and radix-8 butterflies' inner twiddles and the
-//     odd DFTs' cos and sin are constants, float64 values rounded once.
+//     block where it fits; the radix-16 and radix-8 butterflies' inner
+//     twiddles and the odd DFTs' cos and sin are constants, float64 values
+//     rounded once.
 //   * A block takes a tile of consecutive channels of one item, group after
-//     group, and every worker keeps a ring of two raw rows in shared
-//     memory: its first thread starts cp.async.bulk (the 1-D TMA bulk copy)
-//     for the rows ahead, completion on an mbarrier per ring slot, while
-//     the worker transforms the current row.  A slot is free again once the
-//     first pass has read it.  (A third slot costs a resident block per SM
-//     and was slower on the H100.)  Two blocks share an SM where their
-//     shared memory allows (every nbin but 3840 and 4096).
+//     group, through a ring of two groups of raw rows in shared memory: one
+//     thread starts cp.async.bulk (the 1-D TMA bulk copy) of a whole group
+//     (its rows are consecutive in memory; a 64-bin row alone is too small
+//     a copy), completion on an mbarrier per ring slot, while the block
+//     transforms the group before.  A slot is free again once the block
+//     barrier after the transforms has passed.  (A third slot costs a
+//     resident block per SM and was slower on the H100.)  Two blocks share
+//     an SM where their shared memory allows (every nbin but 3840, 4096
+//     and 8192).
 //   * sd is the sum of |Z_k|^2 of the packed spectrum, taken by the worker
 //     from its registers after the last pass, the odd one if any (the pair
 //     X_k, X_{N/2-k} carries the power of Z_k, Z_{N/2-k}; Z_0 holds X_0 and
-//     the Nyquist term): warp shuffles, then a fixed-order sum of the warp
-//     results.
+//     the Nyquist term): shuffles within the worker, then a fixed-order
+//     sum of its warps' results.
 //   * Fused epilogue, nothing spilled to device memory.  After a block
-//     barrier all 256 threads untangle the group's rows,
+//     barrier all threads untangle the group's rows,
 //       X_k = E - i W^k O,  E = (Z_k + conj Z_{N/2-k})/2,
 //                           O = (Z_k - conj Z_{N/2-k})/2,  W = e^{-2 pi i/N}
 //     for the pair (k, N/2 - k) at once, only where the model has harmonics
-//     (k or N/2 - k below nh).  Thread t owns the pairs k = t, t + 256, ...,
-//     so model reads and Gr/Gi writes are coalesced, and keeps their seed
-//     partial sums in registers across the rows of the tile; they are
-//     written once per tile, harmonic-contiguous, and a second kernel adds
-//     the tiles in a fixed order (16 threads a harmonic: a tile here is 8 to
-//     64 channels, so there are up to 512 of them).  No float atomics: the
-//     same bits on every run (the seed is an argmax on a 512-point grid).
+//     (k or N/2 - k below nh).  Thread t owns the pairs k = t, t + NT, ...,
+//     so model reads and Gr/Gi writes are coalesced; where a row has fewer
+//     pairs than the block threads (nbin <= 512) the block takes RC rows at
+//     once, thread t the pair t mod (nbin/4) of the rows t div (nbin/4) +
+//     RC i.  Each thread keeps its pairs' seed partial sums in registers
+//     across the rows of the tile; at the end the RC row phases' sums are
+//     added in a fixed order through shared memory, written once per tile,
+//     harmonic-contiguous, and a second kernel adds the tiles in a fixed
+//     order (16 threads a harmonic).  No float atomics: the same bits on
+//     every run (the seed is an argmax on a 512-point grid).
 //   * int16 data are dequantized after the transform (X * scale), the order
 //     the plain twin uses.
 
@@ -83,11 +101,11 @@
 
 namespace {
 
-constexpr int NT = 256;        // threads per block
-constexpr int NSLOT = 2;       // ring slots: raw rows per worker
-constexpr int MIN_NBIN = 128;
-constexpr int MAX_NBIN = 4096;
+constexpr int NSLOT = 2;       // ring slots: groups of raw rows
+constexpr int MIN_NBIN = 64;
+constexpr int MAX_NBIN = 8192;
 constexpr int SM_SMEM = 233472;   // shared memory of an SM (228 KB)
+constexpr int BLOCK_SMEM = 232448;    // the most one block may have
 constexpr int BLOCK_RESERVED = 1024;  // the system's share of each block
 constexpr int MAX_SEEDS = 2;   // seed columns whose sums a thread keeps
 
@@ -118,9 +136,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   } while (!done);
 }
 
-// One thread: expect `bytes` on the barrier and start the bulk copy of one
-// row into its ring slot (16-byte aligned source, destination and size).
-__device__ __forceinline__ void row_load(void* dst, const void* src,
+// One thread: expect `bytes` on the barrier and start the bulk copy of a
+// group's rows into its ring slot (16-byte aligned source, destination and
+// size).
+__device__ __forceinline__ void group_load(void* dst, const void* src,
                                          unsigned bytes, uint64_t* bar) {
   const uint32_t b = smem_u32(bar);
   // reads of the slot by the generic proxy come before this overwrite
@@ -136,9 +155,23 @@ __device__ __forceinline__ void row_load(void* dst, const void* src,
       : "memory");
 }
 
-// all threads of worker w (wt of them, a multiple of 32) meet
-__device__ __forceinline__ void worker_sync(int w, int wt) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(w + 1), "r"(wt) : "memory");
+// the lanes of this thread's worker of WT threads within its warp
+template <int WT>
+__device__ __forceinline__ unsigned worker_mask() {
+  if constexpr (WT >= 32)
+    return 0xffffffffu;
+  else
+    return ((1u << WT) - 1) << (threadIdx.x & 31 & ~(WT - 1));
+}
+
+// all threads of worker w meet: a packed worker's lanes, or its whole
+// warps at named barrier w + 1
+template <int WT>
+__device__ __forceinline__ void worker_sync(int w) {
+  if constexpr (WT < 32)
+    __syncwarp(worker_mask<WT>());
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"r"(w + 1), "r"(WT) : "memory");
 }
 
 struct Args {
@@ -190,19 +223,72 @@ __device__ __forceinline__ void flush(const Args& a, float* base, int h,
     }
 }
 
-// What the epilogue needs of the rows q0 .. q0 + QC - 1 of a group (nrow
-// rows, the first at channel c of item b): scale, seed weights, and the
-// model values of thread tid's harmonic pairs (k, NZ - k), k = tid + NT j.
-template <int NZ, int PP, int QC, int KSA>
+constexpr int pow2_at_least(int n) {
+  int p = 32;
+  while (p < n) p *= 2;
+  return p;
+}
+
+// The threads of a plan's worker: NA = nbin/32 where that is a power of
+// two below a warp (a packed worker, several to a warp), else NA rounded
+// up to a power of two from a warp.
+constexpr int worker_threads(int na) {
+  return na < 32 && (na & (na - 1)) == 0 ? na : pow2_at_least(na);
+}
+
+// The block of the plan P: threads, workers, the epilogue's share of a
+// thread, shared memory (float32 rows: the larger ring) and the blocks an
+// SM holds.
+template <class P>
+struct Layout {
+  static constexpr int WT = worker_threads(P::NA);  // threads of a worker
+  static constexpr int NT = WT > 128 ? 2 * WT : 256;  // threads of a block
+  static constexpr int WPB = NT / WT;            // workers = rows per group
+  static constexpr int NWARP = WT < 32 ? 1 : WT / 32;  // warps of a worker
+  static constexpr int HP = P::NZ / 2;           // harmonic pairs of a row
+  // rows whose pairs the epilogue takes at once, pairs a thread of a row,
+  // rows a thread untangles in a group
+  static constexpr int RC = HP < NT ? (NT / HP < WPB ? NT / HP : WPB) : 1;
+  static constexpr int PP = RC > 1 ? 1 : (HP + NT - 1) / NT;
+  static constexpr int NQ = WPB / RC;
+  static_assert(RC == 1 || (NT % HP == 0 && WPB % RC == 0), "row phases");
+  static_assert(WT < 32 || WPB <= 15, "named barriers 1 .. 15");
+  // the work buffers (at least the room of the seed sums' last reduction)
+  static constexpr size_t WORK_ROWS = static_cast<size_t>(WPB) * P::WSZ * 8;
+  static constexpr size_t WORK_RED =
+      RC > 1 ? static_cast<size_t>(2 * MAX_SEEDS) * NT * 8 : 0;
+  static constexpr size_t WORK = WORK_ROWS > WORK_RED ? WORK_ROWS : WORK_RED;
+  static constexpr size_t TABLE = (P::NTW + HP + 1) * 8;
+  static constexpr size_t RING_F32 =
+      static_cast<size_t>(NSLOT) * WPB * 8 * P::NZ;
+  static constexpr size_t STATIC =
+      NSLOT * 8 + WPB * NWARP * 4 + RC * MAX_SEEDS * 8;
+  // the table in shared memory where it fits beside the rows
+  static constexpr bool TABLE_SMEM =
+      RING_F32 + WORK + TABLE + STATIC <= BLOCK_SMEM;
+  static constexpr size_t BUFS = WORK + (TABLE_SMEM ? TABLE : 0);
+  // two blocks where two fit, else one
+  static constexpr int BLOCKS =
+      2 * (RING_F32 + BUFS + STATIC + BLOCK_RESERVED) <= SM_SMEM ? 2 : 1;
+  // at most 128 registers a thread
+  static constexpr bool TIGHT = NT * BLOCKS >= 512;
+};
+
+// What the epilogue needs of a thread's rows rho + RC (i0 + q), q < QC, of
+// a group (its first row at channel c of item b; rows at or past nrow are
+// left): scale, seed weights, and the model values of the thread's
+// harmonic pairs (k, NZ - k), k = kt + NT j, and of NZ/2 when kt = 0.
+template <int NZ, int NT, int RC, int PP, int QC, int KSA>
 __device__ __forceinline__ void fetch_rows(const Args& a, int b, int c,
-                                           int q0, int nrow, int tid,
-                                           float (&sc)[QC],
+                                           int i0, int nrow, int kt,
+                                           int rho, float (&sc)[QC],
                                            float (&wv)[QC][KSA],
                                            float2 (&mv)[QC][2 * PP + 1]) {
 #pragma unroll
   for (int q = 0; q < QC; ++q) {
-    if (q0 + q < nrow) {
-      const int cq = c + q0 + q;
+    const int row = rho + RC * (i0 + q);
+    if (row < nrow) {
+      const int cq = c + row;
       const size_t ic = static_cast<size_t>(b) * a.nchan + cq;
       sc[q] = a.scale ? a.scale[ic] : 1.0f;
 #pragma unroll
@@ -212,7 +298,7 @@ __device__ __forceinline__ void fetch_rows(const Args& a, int b, int c,
       const float* irow = a.mi + static_cast<size_t>(cq) * a.nh;
 #pragma unroll
       for (int j = 0; j < PP; ++j) {
-        const int k = tid + NT * j, kq = NZ - k;
+        const int k = kt + NT * j, kq = NZ - k;
         const bool on = k < NZ / 2;
         mv[q][2 * j] = (on && k < a.nh) ? make_float2(mrow[k], irow[k])
                                         : make_float2(0.0f, 0.0f);
@@ -220,46 +306,23 @@ __device__ __forceinline__ void fetch_rows(const Args& a, int b, int c,
                                ? make_float2(mrow[kq], irow[kq])
                                : make_float2(0.0f, 0.0f);
       }
-      mv[q][2 * PP] = (tid == 0 && NZ / 2 < a.nh)
+      mv[q][2 * PP] = (kt == 0 && NZ / 2 < a.nh)
                           ? make_float2(mrow[NZ / 2], irow[NZ / 2])
                           : make_float2(0.0f, 0.0f);
     }
   }
 }
 
-constexpr int pow2_at_least(int n) {
-  int p = 32;
-  while (p < n) p *= 2;
-  return p;
-}
-
-// The block of the plan P: workers, the epilogue's pairs per thread, shared
-// memory (float32 rows: the larger ring) and the blocks an SM holds.
-template <class P>
-struct Layout {
-  static constexpr int WT = pow2_at_least(P::NA);  // threads of a worker
-  static constexpr int WPB = NT / WT;            // workers = rows per group
-  static constexpr int PP = (P::NZ / 2 + NT - 1) / NT;  // pairs per thread
-  // the work buffers and the table (the ring comes on top)
-  static constexpr size_t BUFS =
-      (static_cast<size_t>(WPB) * P::WSZ + P::NTW + P::NZ / 2 + 1) * 8;
-  static constexpr size_t STATIC = WPB * NSLOT * 8 + WPB * (WT / 32) * 4;
-  static constexpr size_t SMEM_F32 =
-      WPB * NSLOT * static_cast<size_t>(8 * P::NZ) + BUFS;
-  // two blocks (128 registers a thread) where two fit, else one
-  static constexpr int BLOCKS =
-      2 * (SMEM_F32 + STATIC + BLOCK_RESERVED) <= SM_SMEM ? 2 : 1;
-};
-
-// Rows of a group whose model values the epilogue fetches at a time: up to
-// 4.  With budget, fewer while they and the seed sums (2 PP + 1 pairs,
-// ksa columns: 2 (2 PP + 1)(ksa + q) registers) would pass 56: the
-// mixed-radix plans at two blocks an SM (128 registers a thread), whose
-// ragged pair sets (nbin/4 not a multiple of NT) keep guards live; ptxas
-// spilled them at 60 and 72 (nbin 1280, 1536, 1792; 3328, 3584).
-__host__ __device__ constexpr int rows_ahead(int wpb, int pp, int ksa,
+// Rows a thread fetches the model values of at a time: up to 4 of its nq
+// rows of a group.  With budget, fewer while 2 (2 PP + 1)(ksa + q) would
+// pass 56 (their model values and the seed sums of ksa columns, 2 PP
+// pairs, counted with one pair of margin): the mixed-radix plans and 8192
+// at 128 registers a thread; ptxas spilled the mixed plans, whose ragged
+// pair sets (nbin/4 not a multiple of 256) keep guards live, at 60 and 72
+// (nbin 1280, 1536, 1792; 3328, 3584) and 8192 at 72.
+__host__ __device__ constexpr int rows_ahead(int nq, int pp, int ksa,
                                              bool budget) {
-  int q = wpb < 4 ? wpb : 4;
+  int q = nq < 4 ? nq : 4;
   while (budget && q > 1 && 2 * (2 * pp + 1) * (ksa + q) > 56) q /= 2;
   return q;
 }
@@ -271,31 +334,36 @@ __device__ __forceinline__ float zpower(float2 z) {
 // Plan<M, LG2>: nbin/2 = M 2^LG2; KS: seed accumulators per harmonic
 // (kseed <= KS).
 template <int M, int LG2, int KS>
-__global__ void __launch_bounds__(NT, Layout<ppfft::Plan<M, LG2>>::BLOCKS)
+__global__ void __launch_bounds__(Layout<ppfft::Plan<M, LG2>>::NT,
+                                  Layout<ppfft::Plan<M, LG2>>::BLOCKS)
 setup_fft_kernel(const Args a) {
   using P = ppfft::Plan<M, LG2>;
   using L = Layout<P>;
   constexpr int NZ = P::NZ;                      // complex points
-  constexpr int WT = L::WT, WPB = L::WPB, PP = L::PP;
+  constexpr int NT = L::NT, WT = L::WT, WPB = L::WPB;
+  constexpr int HP = L::HP, RC = L::RC, PP = L::PP, NQ = L::NQ;
   constexpr int KSA = KS > 0 ? KS : 1;
-  constexpr int QC = rows_ahead(WPB, PP, KSA, M > 1 && L::BLOCKS == 2);
+  constexpr int QC = rows_ahead(NQ, PP, KSA, L::TIGHT && (M > 1 || PP > 2));
 
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) uint64_t bars[WPB * NSLOT];
-  __shared__ float wred[WPB][WT / 32];           // L::STATIC bytes
+  __shared__ __align__(8) uint64_t bars[NSLOT];
+  __shared__ float wred[WPB][L::NWARP];          // L::STATIC bytes with bars
+  __shared__ float2 mid[RC][KSA];                // and the middle's sums
 
   const int tid = threadIdx.x;
   const int w = tid / WT, l = tid % WT;
   const unsigned rowbytes = 2 * NZ * (a.x_is_i16 ? 2u : 4u);
+  const unsigned groupbytes = WPB * rowbytes;
 
-  // ring[w][slot]: raw rows; bufs[w]: worker w's padded work buffer; tw
+  // ring[slot]: a group's raw rows; bufs[w]: worker w's padded work
+  // buffer; then the table, where it is kept in shared memory
   unsigned char* ring = smem;
-  float2* bufs = reinterpret_cast<float2*>(smem + WPB * NSLOT * rowbytes);
-  float2* tw = bufs + WPB * P::WSZ;
+  float2* bufs = reinterpret_cast<float2*>(smem + NSLOT * groupbytes);
+  float2* tws = reinterpret_cast<float2*>(
+      reinterpret_cast<unsigned char*>(bufs) + L::WORK);
+  const float2* tw = L::TABLE_SMEM ? tws : a.tw;
   const float2* untw = tw + P::NTW;              // W^k, k = 0 .. NZ/2
-  unsigned char* myring = ring + w * NSLOT * rowbytes;
   float2* mybuf = bufs + w * P::WSZ;
-  uint64_t* mybars = bars + w * NSLOT;
 
   // worker w transforms the rows w, w + WPB, ... of the block's tile
   const int b = blockIdx.y;
@@ -307,29 +375,40 @@ setup_fft_kernel(const Args a) {
       (static_cast<size_t>(b) * a.nchan + c0) * rowbytes;
 
   if (tid == 0) {
-    for (int s = 0; s < WPB * NSLOT; ++s) mbar_init(&bars[s], 1);
+    for (int s = 0; s < NSLOT; ++s) mbar_init(&bars[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int i = tid; i < P::NTW + NZ / 2 + 1; i += NT) tw[i] = a.tw[i];
+  if constexpr (L::TABLE_SMEM)
+    for (int i = tid; i < P::NTW + HP + 1; i += NT) tws[i] = a.tw[i];
   __syncthreads();
-  if (l == 0)
-    for (int s = 0; s < NSLOT && s * WPB + w < rows; ++s)
-      row_load(myring + s * rowbytes,
-               xrow0 + static_cast<size_t>(s * WPB + w) * rowbytes, rowbytes,
-               &mybars[s]);
+  if (tid == 0)
+    for (int s = 0; s < NSLOT && s < ngroups; ++s)
+      group_load(ring + s * groupbytes,
+                 xrow0 + static_cast<size_t>(s) * groupbytes,
+                 min(WPB, rows - s * WPB) * rowbytes, &bars[s]);
 
-  float2 acc[2 * PP + 1][KSA];
+  // the epilogue's share of this thread: the pairs k = kt + NT j of the
+  // rows rho + RC i of each group
+  const int kt = RC > 1 ? tid % HP : tid;
+  const int rho = RC > 1 ? tid / HP : 0;
+  float2 acc[2 * PP][KSA];
 #pragma unroll
-  for (int s = 0; s < 2 * PP + 1; ++s)
+  for (int s = 0; s < 2 * PP; ++s)
 #pragma unroll
     for (int kk = 0; kk < KSA; ++kk) acc[s][kk] = make_float2(0.0f, 0.0f);
+  // the seed sums of k = NZ/2, kept by its thread (kt = 0) of each row
+  // phase in shared memory: four registers fewer a thread (the mixed
+  // plans at 128 registers spill without)
+  if (kt == 0 && rho < RC)
+#pragma unroll
+    for (int kk = 0; kk < KSA; ++kk) mid[rho][kk] = make_float2(0.0f, 0.0f);
 
   for (int g = 0; g < ngroups; ++g) {
-    const int r = g * WPB + w;                   // this worker's row
-    if (r < rows) {
-      const int slot = g % NSLOT;
-      mbar_wait(&mybars[slot], (g / NSLOT) & 1);
-      const unsigned char* raw = myring + slot * rowbytes;
+    const int nrow = min(WPB, rows - g * WPB);   // rows of this group
+    const int slot = g % NSLOT;
+    if (w < nrow) {
+      mbar_wait(&bars[slot], (g / NSLOT) & 1);
+      const unsigned char* raw = ring + slot * groupbytes + w * rowbytes;
       float2 v[16];
       if (l < P::NA) {
         if (a.x_is_i16)
@@ -341,18 +420,14 @@ setup_fft_kernel(const Args a) {
               v, ppfft::Plain{reinterpret_cast<const float2*>(raw)}, mybuf,
               l);
       }
-      worker_sync(w, WT);                        // the slot is read
-      if (l == 0 && r + NSLOT * WPB < rows)
-        row_load(myring + slot * rowbytes,
-                 xrow0 + static_cast<size_t>(r + NSLOT * WPB) * rowbytes,
-                 rowbytes, &mybars[slot]);
+      worker_sync<WT>(w);
       if (l < P::NA) ppfft::fft_phase1<P>(v, mybuf, l);
-      worker_sync(w, WT);
+      worker_sync<WT>(w);
       if (l < P::NA) ppfft::fft_phase2<P>(v, mybuf, tw, l);
       if constexpr (P::R3 > 1) {
-        worker_sync(w, WT);
+        worker_sync<WT>(w);
         if (l < P::NA) ppfft::fft_phase3<P>(v, mybuf, l);
-        worker_sync(w, WT);
+        worker_sync<WT>(w);
         if (l < P::NA) ppfft::fft_phase4<P>(v, mybuf, tw, l);
       }
       // Data power from the thread's points of Z, still in registers: the
@@ -362,16 +437,12 @@ setup_fft_kernel(const Args a) {
       float pw = 0.0f;
       float2 z0 = make_float2(0.0f, 0.0f);
       if constexpr (M > 1) {
-        float2 u[P::N2 / WT][M];                  // odd-pass butterflies
-        worker_sync(w, WT);
-        ppfft::odd_load<P, WT>(u, mybuf, l);
-        worker_sync(w, WT);
-        ppfft::odd_store<P, WT>(u, mybuf, tw, l);
-        z0 = u[0][0];
+        worker_sync<WT>(w);
+        ppfft::odd_pass<P, WT>(mybuf, tw, l, [&](int j, const float2* u) {
+          if (j == 0) z0 = u[0];
 #pragma unroll
-        for (int j = 0; j < P::N2 / WT; ++j)
-#pragma unroll
-          for (int m = j == 0 ? 1 : 0; m < M; ++m) pw += zpower(u[j][m]);
+          for (int m = j == 0 ? 1 : 0; m < M; ++m) pw += zpower(u[m]);
+        });
       } else if (l < P::NA) {
         z0 = v[0];
 #pragma unroll
@@ -384,43 +455,45 @@ setup_fft_kernel(const Args a) {
         pw += zpower(z0);
       }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        pw += __shfl_xor_sync(0xffffffffu, pw, off);
+      for (int off = (WT < 32 ? WT : 32) / 2; off > 0; off >>= 1)
+        pw += __shfl_xor_sync(worker_mask<WT>(), pw, off);
       if ((l & 31) == 0) wred[w][l >> 5] = pw;
     }
 
-    // The group's rows, all threads: thread t owns the harmonic pairs (k,
-    // NZ - k), k = t + NT j.  Scales, seed weights and model values of the
-    // first QC rows are asked for before the barrier, so their latency
-    // hides behind it (more rows ahead would not fit the registers).
-    const int nrow = min(WPB, rows - g * WPB);
+    // The group's rows, all threads.  Scales, seed weights and model
+    // values of the first QC rows are asked for before the barrier, so
+    // their latency hides behind it (more rows ahead would not fit the
+    // registers).
+    const int mine = rho < RC ? nrow : 0;        // rows this thread takes
     float sc[QC], wv[QC][KSA];
     float2 mv[QC][2 * PP + 1];
-    fetch_rows<NZ, PP, QC, KSA>(a, b, c0 + g * WPB, 0, nrow, tid, sc, wv, mv);
+    fetch_rows<NZ, NT, RC, PP, QC, KSA>(a, b, c0 + g * WPB, 0, mine, kt, rho,
+                                         sc, wv, mv);
     __syncthreads();                             // every row's Z is written
-    if (l == 0 && r < rows) {                    // fixed order: the same bits
-      const size_t ic = static_cast<size_t>(b) * a.nchan + c0 + r;
+    if (l == 0 && w < nrow) {                    // fixed order: the same bits
+      const size_t ic = static_cast<size_t>(b) * a.nchan + c0 + g * WPB + w;
       const float s = a.scale ? a.scale[ic] : 1.0f;
       float sum = 0.0f;
 #pragma unroll
-      for (int i = 0; i < WT / 32; ++i) sum += wred[w][i];
+      for (int i = 0; i < L::NWARP; ++i) sum += wred[w][i];
       a.sd[ic] = sum * s * s;
     }
 #pragma unroll
-    for (int q0 = 0; q0 < WPB; q0 += QC) {
-      if (q0 > 0)
-        fetch_rows<NZ, PP, QC, KSA>(a, b, c0 + g * WPB, q0, nrow, tid, sc, wv,
-                                    mv);
+    for (int i0 = 0; i0 < NQ; i0 += QC) {
+      if (i0 > 0)
+        fetch_rows<NZ, NT, RC, PP, QC, KSA>(a, b, c0 + g * WPB, i0, mine, kt,
+                                             rho, sc, wv, mv);
 #pragma unroll
       for (int q = 0; q < QC; ++q) {
-        if (q0 + q < nrow) {
-          const float2* z = bufs + (q0 + q) * P::WSZ;
+        const int row = rho + RC * (i0 + q);
+        if (row < mine) {
+          const float2* z = bufs + row * P::WSZ;
           const size_t ic =
-              static_cast<size_t>(b) * a.nchan + c0 + g * WPB + q0 + q;
+              static_cast<size_t>(b) * a.nchan + c0 + g * WPB + row;
           const float s = sc[q];
 #pragma unroll
           for (int j = 0; j < PP; ++j) {
-            const int k = tid + NT * j;
+            const int k = kt + NT * j;
             // only the harmonics the model has (k or NZ - k below nh)
             if (k < NZ / 2 && (k < a.nh || NZ - k < a.nh)) {
               const float2 zk = z[k];
@@ -438,29 +511,69 @@ setup_fft_kernel(const Args a) {
                        mv[q][2 * j + 1], wv[q], acc[2 * j + 1]);  // X_{NZ-k}
             }
           }
-          if (tid == 0 && NZ / 2 < a.nh) {  // k = NZ/2 pairs with itself
+          if (kt == 0 && NZ / 2 < a.nh) {  // k = NZ/2 pairs with itself
             const float2 zh = z[NZ / 2];
             emit<KS>(a, ic, NZ / 2, zh.x * s, -zh.y * s, mv[q][2 * PP],
-                     wv[q], acc[2 * PP]);
+                     wv[q], mid[rho]);
           }
         }
       }
     }
     __syncthreads();                             // the buffers are free
+    // the slot was read before the first barrier: group g + NSLOT into it
+    // (here, where the epilogue's registers are free)
+    if (tid == 0 && g + NSLOT < ngroups)
+      group_load(ring + slot * groupbytes,
+                 xrow0 + static_cast<size_t>(g + NSLOT) * groupbytes,
+                 min(WPB, rows - (g + NSLOT) * WPB) * rowbytes, &bars[slot]);
   }
 
-  if (KS > 0) {
-    float* base = a.part + (static_cast<size_t>(b) * gridDim.x + blockIdx.x) *
-                               a.kseed * 2 * a.nh;
+  if constexpr (KS > 0) {
+    if constexpr (RC > 1) {
+      // the row phases' sums of each pair, added in the order of rho in
+      // the (free) work buffers; the middle's in its own
+      float2* red = bufs;
 #pragma unroll
-    for (int j = 0; j < PP; ++j) {
-      const int k = tid + NT * j;
-      if (k < NZ / 2) {
-        flush<KS>(a, base, k, acc[2 * j]);
-        flush<KS>(a, base, NZ - k, acc[2 * j + 1]);
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) red[(s * KS + kk) * NT + tid] =
+            acc[s][kk];
+      __syncthreads();
+      if (rho == 0) {
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) {
+            float2 t = red[(s * KS + kk) * NT + kt];
+            for (int r = 1; r < RC; ++r) {
+              const float2 u = red[(s * KS + kk) * NT + r * HP + kt];
+              t.x += u.x;
+              t.y += u.y;
+            }
+            acc[s][kk] = t;
+          }
+        if (kt == 0)
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk)
+            for (int r = 1; r < RC; ++r) {
+              mid[0][kk].x += mid[r][kk].x;
+              mid[0][kk].y += mid[r][kk].y;
+            }
       }
     }
-    if (tid == 0) flush<KS>(a, base, NZ / 2, acc[2 * PP]);
+    if (rho == 0) {
+      float* base = a.part + (static_cast<size_t>(b) * gridDim.x +
+                              blockIdx.x) * a.kseed * 2 * a.nh;
+#pragma unroll
+      for (int j = 0; j < PP; ++j) {
+        const int k = kt + NT * j;
+        if (k < NZ / 2) {
+          flush<KS>(a, base, k, acc[2 * j]);
+          flush<KS>(a, base, NZ - k, acc[2 * j + 1]);
+        }
+      }
+      if (kt == 0) flush<KS>(a, base, NZ / 2, mid[0]);
+    }
   }
 }
 
@@ -501,7 +614,8 @@ seed_reduce_fft_kernel(const float* __restrict__ part,
   }
 }
 
-// dynamic shared memory of one block: the ring, the work buffers, the table
+// dynamic shared memory of one block: the ring, the work buffers, the
+// table where it is kept there
 template <class P>
 size_t smem_bytes(size_t rowbytes) {
   using L = Layout<P>;
@@ -516,7 +630,8 @@ cudaError_t launch(const Args& a, dim3 grid, size_t rowbytes,
       setup_fft_kernel<M, LG2, KS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  setup_fft_kernel<M, LG2, KS><<<grid, NT, smem, stream>>>(a);
+  setup_fft_kernel<M, LG2, KS>
+      <<<grid, Layout<ppfft::Plan<M, LG2>>::NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -530,12 +645,12 @@ cudaError_t run(const Args& a, int ntw, dim3 grid, size_t rowbytes,
   return launch<M, LG2, MAX_SEEDS>(a, grid, rowbytes, stream);
 }
 
-// Every plan (M, LG2), nbin = 2 M 2^LG2: the powers of two 128 .. 4096,
+// Every plan (M, LG2), nbin = 2 M 2^LG2: the powers of two 64 .. 8192,
 // then 256 q for odd q = M 2^(LG2 - 7) <= 16 (nbin 768 .. 3840).
 #define PP_FFT_PLANS(X)                                                  \
-  X(1, 6) X(1, 7) X(1, 8) X(1, 9) X(1, 10) X(1, 11) X(3, 7) X(3, 8)     \
-  X(3, 9) X(5, 7) X(5, 8) X(7, 7) X(7, 8) X(9, 7) X(11, 7) X(13, 7)     \
-  X(15, 7)
+  X(1, 5) X(1, 6) X(1, 7) X(1, 8) X(1, 9) X(1, 10) X(1, 11) X(1, 12)    \
+  X(3, 7) X(3, 8) X(3, 9) X(5, 7) X(5, 8) X(7, 7) X(7, 8) X(9, 7)       \
+  X(11, 7) X(13, 7) X(15, 7)
 
 cudaError_t dispatch(int m, int lg2, const Args& a, int ntw, dim3 grid,
                      size_t rowbytes, cudaStream_t stream) {
@@ -549,12 +664,14 @@ cudaError_t dispatch(int m, int lg2, const Args& a, int ntw, dim3 grid,
 }  // namespace
 
 // x (B, nchan, nbin) int16 (x_is_i16 != 0) or f32, 16-byte aligned, nbin
-// 128 or 256 q, q = 1 .. 16; tw (ntw, 2) f32: the twiddled passes' tables
-// then W^k for k <= nbin/4 (ops/setup_dft._fft_tables_np); mr/mi (nchan,
-// nh); scale (B, nchan) or null; w (B, nchan, kseed) or null (kseed = 0;
-// at most 2); outputs gr/gi (B, nchan, nh), sd (B, nchan); with kseed > 0:
-// scratch part (B, ceil(nchan/rows_per_tile), kseed, 2, nh) and gsr/gsi (B,
-// kseed, nh).  All contiguous.  Returns cudaGetLastError() after the launches.
+// 64, 128, 8192 or 256 q, q = 1 .. 16 (a plan of PP_FFT_PLANS; any other
+// nbin returns cudaErrorInvalidValue); tw (ntw, 2) f32: the twiddled
+// passes' tables then W^k for k <= nbin/4 (ops/setup_dft._fft_tables_np);
+// mr/mi (nchan, nh); scale (B, nchan) or null; w (B, nchan, kseed) or null
+// (kseed = 0; at most 2); outputs gr/gi (B, nchan, nh), sd (B, nchan);
+// with kseed > 0: scratch part (B, ceil(nchan/rows_per_tile), kseed, 2,
+// nh) and gsr/gsi (B, kseed, nh).  All contiguous.  Returns
+// cudaGetLastError() after the launches.
 extern "C" int pp_fused_setup_fft(const void* x, int x_is_i16,
                                   const float* tw, int ntw, const float* mr,
                                   const float* mi, const float* scale,

@@ -16,33 +16,38 @@ pulseportraiture_tpu/ops/ct_dft.py `pallas_direct_setup`
 harmonics the capped set is a prefix, so one kernel serves both with
 nh = NQ*M' or nbin/2 + 1.
 
-Kernel note (csrc/setup_fft.cu, `pp_fused_setup_fft`; nbin = 128 and
-every nbin = 256 q, q = 1..16, the band cap's widths; at most 2 seed
-columns):
+Kernel note (csrc/setup_fft.cu, `pp_fused_setup_fft`; nbin = 64, 128,
+8192 and every nbin = 256 q, q = 1..16: the band cap's widths and the
+powers of two around them; at most 2 seed columns):
   * Bound on the H100: bytes.  An FFT needs 2.5 nbin log2(nbin) flops
     per row against nbin * itemsize bytes read, so the data read (once)
     and Gr/Gi written set the least time; tensor cores are not used.
-  * Design: a block takes a tile of consecutive channels of one item.
-    Each row arrives in a two-slot shared-memory ring by cp.async.bulk
-    (completion on an mbarrier) and is transformed there as an nbin/2-point
-    complex Stockham FFT of the packed row z_j = x_2j + i x_2j+1 by a worker of
-    nbin/32 threads (rounded up to a power of two), 16 points each in
-    registers, in passes of radix 16, 16 and 2, 4 or 8 over the
-    power-of-two factor of nbin/2 and, when nbin/2 = m 2^a with m odd
-    (nbin 768, 1280, ..., 3840), a closing pass of radix m
-    (csrc/fft_passes.cuh).  sd is the power of the
-    packed spectrum (which is sum |X_k|^2), summed from those registers
-    in a fixed order.  The block then untangles its rows into the real
-    transform's harmonics where the model has them and writes Gr/Gi;
-    seed partial sums stay in registers over the tile, and a second,
-    fixed-order pass adds the tiles (no float atomics: the same bits on
-    every run).  Twiddles come from a host float64 -> float32 table
-    (_fft_tables_np), never from sincosf.
+  * Design: a block takes a tile of consecutive channels of one item,
+    a group of rows at a time; each group arrives in one cp.async.bulk
+    into a two-slot shared-memory ring (completion on an mbarrier).  A
+    worker of nbin/32 threads transforms each row there as an
+    nbin/2-point complex Stockham FFT of the packed row z_j = x_2j + i
+    x_2j+1, 16 points a thread in registers, in passes of radix 16, 16
+    and 2, 4, 8 or 16 over the power-of-two factor of nbin/2 and, when
+    nbin/2 = m 2^a with m odd (nbin 768, 1280, ..., 3840), a closing
+    pass of radix m (csrc/fft_passes.cuh).  Below a warp (nbin 64 ..
+    512) several workers share a warp (the packed worker, a __syncwarp
+    of its lanes between passes); from a warp up a worker is rounded up
+    to a power of two; at 8192 two 256-thread workers make a 512-thread
+    block that reads its twiddle table through L1 (_fft_layout).  sd is
+    the power of the packed spectrum (which is sum |X_k|^2), summed from
+    those registers in a fixed order.  The block then untangles its
+    rows into the real transform's harmonics where the model has them
+    and writes Gr/Gi (several rows at once where a row has fewer pairs
+    than the block threads); seed partial sums stay in registers over
+    the tile, and a second, fixed-order pass adds the tiles (no float
+    atomics: the same bits on every run).  Twiddles come from a host
+    float64 -> float32 table (_fft_tables_np), never from sincosf.
   * fused_setup_fft_reference is the plain torch version of this
     algorithm (same passes, same table, same sd), for the tests.
 
-Kernel note (csrc/setup.cu, `pp_fused_setup`; every other nbin: odd, 64,
-1000, 8192, ...):
+Kernel note (csrc/setup.cu, `pp_fused_setup`; every other nbin: odd,
+1000, 256 q for q in 17..31, any width whose odd factor is above 15):
   * Bound: FP32 FMA throughput of a DFT-as-SGEMM (4 nbin nh flops per
     channel), 150x the factored transform's arithmetic at nbin 2048.
   * Design: a tiled FP32-FMA SGEMM against a host f64 -> f32 trig slab
@@ -161,48 +166,63 @@ def fused_setup_reference(x, mr, mi, f0_fact=False, w=None, scale=None):
     return _cross_spectrum(X, mr, mi, f0_fact, w, scale)
 
 
-# what csrc/setup_fft.cu takes: nbin = 128 or 256 q (q = 1..16, so nbin/2
-# = m 2^a with m odd in 1..15); one block holds rows of nbin samples,
-# their nbin/2-point work buffers and the twiddle tables in shared memory,
-# and keeps the seed sums of at most 2 weight columns (the fit's seed
-# stacks two) in registers
-FFT_MIN_NBIN, FFT_MAX_NBIN, FFT_MAX_SEEDS = 128, 4096, 2
-_NT, _SM_SMEM, _BLOCK_RESERVED = 256, 233472, 1024   # csrc/setup_fft.cu
+# what csrc/setup_fft.cu takes: nbin = 64, 128, 8192 or 256 q (q = 1..16,
+# so nbin/2 = m 2^a with m odd in 1..15); one block holds rows of nbin
+# samples, their nbin/2-point work buffers and (where they fit) the
+# twiddle tables in shared memory, and keeps the seed sums of at most 2
+# weight columns (the fit's seed stacks two) in registers
+FFT_MIN_NBIN, FFT_MAX_NBIN, FFT_MAX_SEEDS = 64, 8192, 2
+_NT, _SM_SMEM, _BLOCK_SMEM, _BLOCK_RESERVED = 256, 233472, 232448, 1024
 
 
-def _fft_rows(B: int, nchan: int, nsm: int, per_sm: int = 2) -> int:
+def _fft_rows(B: int, nchan: int, nsm: int, per_sm: int = 2,
+              wpb: int = 1) -> int:
     """Channels per block of csrc/setup_fft.cu (the tile of the seed
-    partial sums): the largest power of two in 8..64 that still fills
-    nine tenths of the card's block slots, per_sm to an SM
-    (_fft_blocks_per_sm).  A larger tile spreads a block's start-up over
-    more rows; a card left half empty costs more."""
-    rows = 64
+    partial sums): the largest power of two in 8..max(64, 8 wpb) that
+    still fills nine tenths of the card's block slots, per_sm to an SM
+    (wpb: rows a block transforms at once; _fft_layout).  A larger tile
+    spreads a block's start-up over more rows; a card left half empty
+    costs more."""
+    rows = max(64, 8 * wpb)
     while rows > 8 and B * -(-nchan // rows) < 0.9 * per_sm * nsm:
         rows //= 2
     return rows
 
 
-def _fft_blocks_per_sm(nbin: int) -> int:
-    """Blocks of csrc/setup_fft.cu an SM holds at this nbin (its
-    Layout::BLOCKS): two where two blocks' shared memory fits the SM with
-    float32 rows (the ring of 2 rows a worker, the work buffers, the
-    tables), else one (nbin 3840 and 4096)."""
+def _fft_layout(nbin: int):
+    """(threads a block, threads a worker, workers a block, blocks an SM)
+    of csrc/setup_fft.cu at this nbin, its Layout: a worker of nbin/32
+    threads, several to a warp below a warp and else rounded up to a
+    power of two; 256 threads a block, 512 (two workers) at 8192; the
+    twiddle tables in shared memory where they fit beside the float32 ring
+    (two groups of rows) and the work buffers; two blocks an SM where two
+    blocks' shared memory fits, else one (nbin 3840, 4096 and 8192)."""
     nz = nbin // 2
-    wt = max(32, 1 << (nz // 16 - 1).bit_length())     # a worker's threads
-    wpb = _NT // wt                                     # workers a block
-    smem = wpb * 2 * nbin * 4 + (wpb * (nz + nz // 16) +
-                                 len(_fft_tables_np(nbin))) * 8
-    static = wpb * 2 * 8 + wpb * (wt // 32) * 4
-    return 2 if 2 * (smem + static + _BLOCK_RESERVED) <= _SM_SMEM else 1
+    na = nz // 16
+    wt = na if na < 32 and na & (na - 1) == 0 else \
+        max(32, 1 << (na - 1).bit_length())
+    nt = 2 * wt if wt > 128 else _NT
+    wpb, hp = nt // wt, nz // 2
+    rc = min(nt // hp, wpb) if hp < nt else 1
+    work = 8 * max(wpb * (nz + nz // 16),
+                   2 * FFT_MAX_SEEDS * nt if rc > 1 else 0)
+    table = 8 * len(_fft_tables_np(nbin))
+    ring = 2 * wpb * nbin * 4
+    static = 2 * 8 + wpb * max(1, wt // 32) * 4 + rc * FFT_MAX_SEEDS * 8
+    if ring + work + table + static <= _BLOCK_SMEM:
+        work += table
+    blocks = 2 if 2 * (ring + work + static + _BLOCK_RESERVED) <= \
+        _SM_SMEM else 1
+    return nt, wt, wpb, blocks
 
 
 def setup_route(nbin: int) -> str:
     """Which hand-written kernel fused_setup launches on a CUDA tensor:
-    "fft" (csrc/setup_fft.cu) for nbin = 128 and every nbin = 256 q, q =
-    1..16 (every nbin cap_supported takes), else "gemm" (csrc/setup.cu:
-    odd nbin, 64, 1000, 8192, ...)."""
-    if nbin == FFT_MIN_NBIN or (nbin % 256 == 0 and
-                                256 <= nbin <= FFT_MAX_NBIN):
+    "fft" (csrc/setup_fft.cu) for nbin = 64, 128, 8192 and every nbin =
+    256 q, q = 1..16 (every nbin cap_supported takes), else "gemm"
+    (csrc/setup.cu: odd nbin, 1000, 256 q for q in 17..31, ...)."""
+    if nbin in (64, 128, FFT_MAX_NBIN) or (nbin % 256 == 0 and
+                                          256 <= nbin <= 4096):
         return "fft"
     return "gemm"
 
@@ -505,18 +525,19 @@ def _launch_gemm(x, mr, mi, f0_fact, w, scale):
 def _launch_fft(x, mr, mi, f0_fact, w, scale, rows=None):
     """csrc/setup_fft.cu on checked arguments (_check): rows channels per
     block (default: _fft_rows; scripts/torch_setup_tune.py sweeps it).  The
-    bulk copies need a 16-byte aligned x (a row of nbin = 128 or 256 q
-    samples is a multiple of 16 bytes)."""
+    bulk copies need a 16-byte aligned x (a row of the FFT route's nbin,
+    a multiple of 64, is a multiple of 16 bytes)."""
     from pulseportraiture_tpu_torch._build import load_kernels
 
     B, nchan, nbin = x.shape
-    if rows is None:
-        rows = _fft_rows(B, nchan, torch.cuda.get_device_properties(
-            x.device).multi_processor_count, _fft_blocks_per_sm(nbin))
-    nh = mr.shape[-1]
-    kseed = 0 if w is None else w.shape[-1]
     if setup_route(nbin) != "fft":
         raise ValueError(f"the FFT setup kernel does not take nbin={nbin}")
+    if rows is None:
+        _, _, wpb, per_sm = _fft_layout(nbin)
+        rows = _fft_rows(B, nchan, torch.cuda.get_device_properties(
+            x.device).multi_processor_count, per_sm, wpb)
+    nh = mr.shape[-1]
+    kseed = 0 if w is None else w.shape[-1]
     if kseed > FFT_MAX_SEEDS:
         raise ValueError(f"the FFT setup kernel takes at most "
                          f"{FFT_MAX_SEEDS} seed columns, got {kseed}")

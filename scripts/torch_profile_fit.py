@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time of one warm batched fit goes, on one NVIDIA card.
 
-    python3 scripts/torch_profile_fit.py [--out profile.json]
+    python3 scripts/torch_profile_fit.py [--nbin N] [--out profile.json]
 
 Profiles (torch.profiler, CPU + CUDA activities) one warm batch of the
 port's fit_portrait_full_batch at 4096 channels x 2048 bins, float32,
@@ -20,7 +20,9 @@ channels as 4096 rows):
     4096 single-channel (phi, tau) items in one fit_portrait_full_batch,
     band-capped template, started from the FFTFIT phases.
 The data recipes are chip_smoke.py's own (phidm_recipe, gm_recipe,
-scat_recipe).
+scat_recipe).  --nbin N profiles only the (phi, DM) fit, at 4096
+channels x N bins (both templates where the band cap applies, else the
+full band).
 Prints, per case: the batch's unprofiled wall ms (host clock to a
 synchronize, median of 3) and its profiled wall ms (the profiler slows
 the host), device busy ms (the union of kernel intervals), the setup
@@ -101,6 +103,8 @@ def profile(run):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--nbin", type=int, default=None,
+                    help="only the (phi, DM) fit, at this width")
     ap.add_argument("--out", default=None, help="also write JSON here")
     args = ap.parse_args()
     import numpy as np
@@ -127,16 +131,20 @@ def main():
 
     # (phi, DM), B=64: bench.py's recipe
     B = 64
-    data, freqs, model, _, _, _ = cs.phidm_recipe(dev, B)
-    for name, mft in cs.template_routes(model).items():
+    nbin = args.nbin or cs.NBIN
+    at = "" if nbin == cs.NBIN else f"/nbin{nbin}"
+    data, freqs, model, _, _, _ = cs.phidm_recipe(dev, B, nbin=nbin)
+    for name, mft in cs.template_routes(model, nbin).items():
         mft = on_card(mft)
         rec = profile(lambda: fit_portrait_full_batch(
             data, mft, torch.zeros((B, 5), **t32),
             torch.full((B,), P, **t32), freqs.float(),
             torch.full((B, N), cs.NOISE, **t32)))
-        out[f"phi_dm/{name}/B{B}"] = rec
-        print(f"phi_dm {name} B={B}: {json.dumps(rec)}", flush=True)
+        out[f"phi_dm/{name}/B{B}{at}"] = rec
+        print(f"phi_dm {name} B={B}{at}: {json.dumps(rec)}", flush=True)
     del data
+    if args.nbin is not None:
+        return write(args.out, cs.card_line(), out)
 
     # (phi, DM, GM), B=64: chip_smoke.py's gm_recipe
     data, freqs, model, _, _, _, _ = cs.gm_recipe(dev, B)
@@ -192,11 +200,15 @@ def main():
     rec["mean_niter"] = float(niter[-1].double().mean())
     out["narrowband/fit_scat/items4096"] = rec
     print(f"narrowband fit_scat items={N}: {json.dumps(rec)}", flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(dict(card=cs.card_line(), cases=out), f, indent=1)
+    return write(args.out, cs.card_line(), out)
+
+
+def write(path, card, cases):
+    """The cases as JSON to path (when one is given); returns 0."""
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(dict(card=card, cases=cases), f, indent=1)
     return 0
 
 

@@ -7,13 +7,15 @@ over the tile size (channels per block), beside the other routes.
 1. Builds the kernels and prints what ptxas says of setup_fft.cu
    (registers, spills, shared memory).
 2. Sweep, at 4096 channels x nbin bins (chip_smoke.py's data; nbin
-   2048 unless --nbin names another width the FFT route takes): B=4 with
-   two seed columns, capped (nh=128), full band (nh=1025) and int16
-   capped; one item without seed weights, capped and full band; rows per
-   block in {4, 8, 16, 32, 64} and the wrapper's own choice (_fft_rows);
-   CUDA events, mean of 20 launches after 3 warm-ups.  Beside them, in
-   the same call: the SGEMM route (csrc/setup.cu), the rfft twin and the
-   byte bound.
+   2048 unless --nbin names another width the FFT route takes): B=4
+   (B=64 up to 512 bins) with two seed columns, capped (the band cap's
+   nh, or the full band where the cap does not apply), full band and
+   int16 capped; one item without seed weights, capped and full band;
+   rows per block over the powers of two from 4 to 16 times the rows a
+   block transforms at once (at least 64) and the wrapper's own choice
+   (_fft_rows); CUDA events, mean of 20 launches after 3 warm-ups.
+   Beside them, in the same call: the SGEMM route (csrc/setup.cu), the
+   rfft twin and the byte bound.
 Needs a card.  (tests/test_torch_kernels.py holds the kernel against its
 float64 twin at small and ragged shapes.)
 """
@@ -34,9 +36,14 @@ def sweep(dev, nbin):
     from pulseportraiture_tpu_torch.io.native import quantize_i2
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
 
-    B = 4
+    B = 64 if nbin <= 512 else 4
     data, _, model, _, _, _ = cs.phidm_recipe(dev, B, seed=1, nbin=nbin)
     routes = cs.template_routes(model, nbin)
+    capped = "capped" if "capped" in routes else "full_band"
+    _, _, wpb, per_sm = sdft._fft_layout(nbin)
+    sweep_rows = [4]
+    while sweep_rows[-1] < 16 * max(wpb, 4):
+        sweep_rows.append(2 * sweep_rows[-1])
 
     def on_card(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
@@ -46,23 +53,23 @@ def sweep(dev, nbin):
     raw = torch.from_numpy(raw).to(dev)
     scl = torch.from_numpy(scl.astype(np.float32)).to(dev)
     x1 = data[:1].contiguous()
-    cases = {"capped": (data, "capped", w, None),
+    cases = {"capped": (data, capped, w, None),
              "full_band": (data, "full_band", w, None),
-             "i16": (raw, "capped", w, scl),
-             "one_item_capped": (x1, "capped", None, None),
+             "i16": (raw, capped, w, scl),
+             "one_item_capped": (x1, capped, None, None),
              "one_item_full_band": (x1, "full_band", None, None)}
     out = {}
     for name, (x, route, ww, sc) in cases.items():
         mr, mi = (on_card(a) for a in routes[route])
         nh = mr.shape[-1]
         rec = {"nh": nh}
-        for rows in (4, 8, 16, 32, 64):
+        for rows in sweep_rows:
             rec[f"fft_rows{rows}_ms"] = cs.cuda_ms(
                 lambda: sdft._launch_fft(x, mr, mi, False, ww, sc,
                                          rows=rows), reps=20, warm=3)
         rec["default_rows"] = sdft._fft_rows(
             x.shape[0], x.shape[1], torch.cuda.get_device_properties(
-                dev).multi_processor_count, sdft._fft_blocks_per_sm(nbin))
+                dev).multi_processor_count, per_sm, wpb)
         rec["fft_default_ms"] = cs.cuda_ms(
             lambda: sdft._launch_fft(x, mr, mi, False, ww, sc), reps=20,
             warm=3)

@@ -230,6 +230,23 @@ def test_scattering_moments_kernel_offset_views(cuda, off_r, off_i, off_m):
     (2560, False, False, False, 70, False, "fft"),  # 5 x 256
     (3584, True, False, False, 33, True, "fft"),   # 7 x 256
     (1000, False, False, False, 33, True, "gemm"),  # 8 x 125: no FFT plan
+    # the packed workers (2, 4, 8, 16 threads: several rows to a warp, a
+    # group of rows in one bulk copy) and 8192 (a third radix-16 pass,
+    # 512-thread blocks): int16, ragged last tiles, K=0, less than one tile
+    (64, False, False, False, 70, True, "fft"),
+    (64, False, True, False, 300, True, "fft"),
+    (64, False, False, True, 5, False, "fft"),
+    (128, False, True, False, 130, True, "fft"),
+    (128, False, False, False, 5, False, "fft"),
+    (256, True, True, False, 70, True, "fft"),
+    (256, False, False, False, 33, False, "fft"),
+    (512, False, True, False, 130, True, "fft"),
+    (512, True, False, True, 5, False, "fft"),
+    (8192, False, False, False, 33, True, "fft"),
+    (8192, False, True, False, 70, True, "fft"),
+    (8192, False, False, True, 5, False, "fft"),
+    (8192, False, True, False, 130, False, "fft"),
+    (4608, False, False, False, 33, True, "gemm"),  # 256 x 18: no FFT plan
 ])
 def test_fused_setup_kernel_matches_twin(cuda, nbin, capped, i16, f0_fact,
                                          nchan, seeds, route):

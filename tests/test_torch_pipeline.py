@@ -3,9 +3,10 @@ JAX package's GetTOAs on the same archives and templates.
 
 Archives: 3 epochs x 2 subints of int16 PSRFITS from the JAX package's
 make_fake_pulsar (as tests/test_end_to_end.py makes them), with injected
-per-epoch dDMs, at 32 x 256 and again at 16 x 768 (a band-cap width that
-is not a power of two).  Templates: a noiseless FITS archive and a .spl
-spline model written by the JAX package's write_spline_model.  Both
+per-epoch dDMs, at 32 x 256, again at 16 x 768 (a band-cap width that
+is not a power of two) and at 4 x 8192 (the widest width).  Templates: a
+noiseless FITS archive and a .spl spline model written by the JAX
+package's write_spline_model.  Both
 packages fit in float64 on the CPU: TOAs agree within 1 ns, DMs and their
 errors within 1e-6 of the formal error.
 """
@@ -115,6 +116,12 @@ def ws768(tmp_path_factory):
     return _workspace(tmp_path_factory.mktemp("torch_pipeline_768"), 16, 768)
 
 
+@pytest.fixture(scope="module")
+def ws8192(tmp_path_factory):
+    return _workspace(tmp_path_factory.mktemp("torch_pipeline_8192"), 4,
+                      8192)
+
+
 @pytest.mark.parametrize("kind", ["fits", "spl"])
 def test_port_toas_match_jax(ws, kind):
     _toas_match_jax(ws, kind)
@@ -143,6 +150,13 @@ def test_port_toas_match_jax_at_768_bins(ws768, monkeypatch):
     assert len(g32.TOA_list) == 6 and seen
     assert all(mine == theirs is not None for mine, theirs in seen), seen
     assert g32.mharms == sorted({m for m, _ in seen})
+
+
+def test_port_toas_match_jax_at_8192_bins(ws8192):
+    """At 4 x 8192 (the widest width the port fits, its full band on the
+    FFT setup route's three radix-16 passes on the card; the JAX package
+    sets it up outside its TPU kernels), the same parity in float64."""
+    _toas_match_jax(ws8192, "fits")
 
 
 def _toas_match_jax(ws, kind):

@@ -1,10 +1,12 @@
 """The FFT setup route of ops.setup_dft on the CPU: the plain torch version
 of csrc/setup_fft.cu's own algorithm (fused_setup_fft_reference: packed
-half-length Stockham FFT in passes of radix 16/16/2-8 and, for nbin/2 =
+half-length Stockham FFT in passes of radix 16/16/2-16 and, for nbin/2 =
 m 2^a with m odd, a closing pass of radix m; untangling step, the
 kernel's twiddle table) against the rfft twin and against the JAX
-package's setup functions (at 256 bins and at the mixed-radix widths 768
-and 1280), the twiddle table itself, and the route rule.
+package's setup functions (at 256 bins, at the mixed-radix widths 768
+and 1280, and at 64 and 8192 bins, where the JAX package sets up outside
+its TPU kernels), the twiddle table itself, the kernel's block layout
+and the route rule.
 
 Tolerances:
   * float64, against the rfft twin: <= 1e-12 of the largest magnitude of
@@ -12,6 +14,8 @@ Tolerances:
   * float32, against the JAX package (outputs mapped back from the TPU's
     Cooley-Tukey order by ct_perm_np): test_torch_setup.py's, 1e-5 for the
     f32-class routes, 1e-4 for the split-bf16 pallas_direct_setup;
+  * float64, against the JAX package's stats.make_setup (rfft in XLA):
+    1e-12, as against the rfft twin;
   * float32 accuracy class: the error against the float64 twin is at most
     twice the float32 rfft twin's.
 """
@@ -93,6 +97,15 @@ def _inputs(nbin, nchan, capped, i16, K, f0_fact, seed=3):
     (3840, 5, True, False, 2, False),
     (3840, 33, False, True, 2, False),
     (3840, 70, True, True, 0, False),
+    # the radix-16 + radix-2 plan (64) and three radix-16 passes (8192)
+    (64, 5, False, False, 2, False),
+    (64, 33, True, True, 0, False),
+    (64, 70, False, False, 2, True),
+    (64, 70, False, True, 2, False),
+    (8192, 5, False, True, 2, False),
+    (8192, 9, True, False, 0, True),
+    (8192, 33, False, False, 2, False),
+    (8192, 33, False, True, 0, False),
 ])
 def test_fft_reference_matches_rfft_twin_float64(nbin, nchan, capped, i16, K,
                                                  f0_fact):
@@ -112,11 +125,11 @@ def test_fft_reference_matches_rfft_twin_float64(nbin, nchan, capped, i16, K,
         assert not got[0][..., 0].any() and not got[1][..., 0].any()
 
 
-@pytest.mark.parametrize("nz", [64, 128, 256, 512, 1024, 2048,
+@pytest.mark.parametrize("nz", [32, 64, 128, 256, 512, 1024, 2048, 4096,
                                 192, 320, 448, 576, 704, 832, 960, 1920])
 def test_stockham_stages_match_fft(nz):
-    """Two and three passes, every closing radix, every odd closing pass
-    (3 .. 15): the pass walk is torch.fft.fft."""
+    """Two and three passes, every closing radix (2 .. 16), every odd
+    closing pass (3 .. 15): the pass walk is torch.fft.fft."""
     rng = np.random.default_rng(nz)
     z = torch.from_numpy(rng.normal(size=(3, nz)) +
                          1j * rng.normal(size=(3, nz)))
@@ -177,9 +190,42 @@ def test_fft_reference_matches_jax_setups_mixed_radix(nbin, route, capped,
     _matches_jax(route, _case(capped, i16, K, f0_fact, nbin=nbin))
 
 
+@pytest.mark.parametrize("nbin,nchan,i16,f0_fact", [
+    (64, 5, False, False), (64, 33, True, False), (64, 20, False, True),
+    (8192, 5, False, False), (8192, 9, True, False), (8192, 4, False, True),
+])
+def test_fft_reference_matches_jax_make_setup(nbin, nchan, i16, f0_fact):
+    """At 64 and 8192 bins the JAX package sets up outside its TPU kernels
+    (_use_ct_setup is false there: fit_portrait_full_batch runs
+    stats.make_setup, rfft and the cross-spectrum in XLA); in float64 both
+    sides: Gr, Gi and the per-channel data power within 1e-12 of their
+    largest magnitude (int16 rows dequantized first on the JAX side, as
+    its non-CT fallback does)."""
+    from pulseportraiture_tpu.fitters import stats as jstats
+
+    x, mr, mi, _, scale = _inputs(nbin, nchan, False, i16, 0, f0_fact)
+    got = sdft.fused_setup_fft_reference(x, mr, mi, f0_fact, scale=scale)
+    xd = x.double() if scale is None else x.double() * scale[..., None]
+    errs = np.full(nchan, (nbin / 2.0) ** -0.5)   # Fourier noise 1: w = 1
+    freqs = np.linspace(1100.0, 1900.0, nchan)
+    for b in range(x.shape[0]):
+        want = jstats.make_setup(xd[b].numpy(), None, errs, 1.0, freqs,
+                                 1500.0, 1500.0, 1500.0, f0_fact=f0_fact,
+                                 model_ft_ri=(mr.numpy(), mi.numpy()))
+        gr, gi, sd = (np.asarray(a) for a in (want.Gr, want.Gi,
+                                              want.sd_chan))
+        gmax = max(np.abs(gr).max(), np.abs(gi).max())
+        assert got[0][b].shape == gr.shape == (nchan, nbin // 2 + 1)
+        assert np.abs(got[0][b].numpy() - gr).max() <= 1e-12 * gmax
+        assert np.abs(got[1][b].numpy() - gi).max() <= 1e-12 * gmax
+        assert np.abs(got[2][b].numpy() - sd).max() <= \
+            1e-12 * np.abs(sd).max()
+
+
 @pytest.mark.parametrize("nbin,i16", [(512, False), (2048, False),
                                       (2048, True), (1280, False),
-                                      (1280, True)])
+                                      (1280, True), (64, False), (64, True),
+                                      (8192, True)])
 def test_fft_reference_is_float32_class(nbin, i16):
     """In float32 the factored transform is no worse than the float32
     rfft twin (x2): both are eps log2(nbin) algorithms."""
@@ -196,7 +242,7 @@ def test_fft_reference_is_float32_class(nbin, i16):
     assert 0.0 < errs["fft"] <= 2.0 * errs["rfft"]
 
 
-@pytest.mark.parametrize("nbin", [128, 2048, 4096, 1536, 3840])
+@pytest.mark.parametrize("nbin", [128, 2048, 4096, 1536, 3840, 64, 8192])
 def test_twiddle_table(nbin):
     tw = sdft._twiddles_np(nbin)
     assert tw.dtype == np.complex128 and tw.shape == (nbin,)
@@ -236,9 +282,10 @@ def test_twiddle_table(nbin):
 
 @pytest.mark.parametrize("nbin,want", [
     (128, "fft"), (256, "fft"), (512, "fft"), (1024, "fft"), (2048, "fft"),
-    (4096, "fft"), (64, "gemm"), (8192, "gemm"), (255, "gemm"),
+    (4096, "fft"), (64, "fft"), (8192, "fft"), (255, "gemm"),
     (768, "fft"), (1280, "fft"), (0, "gemm"), (1536, "fft"),
     (3840, "fft"), (1000, "gemm"), (384, "gemm"), (4352, "gemm"),
+    (4608, "gemm"), (16384, "gemm"),
 ])
 def test_setup_route(nbin, want):
     assert sdft.setup_route(nbin) == want
@@ -246,28 +293,55 @@ def test_setup_route(nbin, want):
 
 def test_fft_route_takes_every_width_the_band_cap_takes():
     """The TPU setup kernels' domain (the band cap's nbin = NQ*128, NQ
-    even in 2..32: 256 q, q = 1..16) is the FFT route's, and each of its
-    widths has a plan (odd factor <= 15 over a power of two >= 128)."""
-    widths = [n for n in range(1, 8193) if sdft.cap_supported(n)]
+    even in 2..32: 256 q, q = 1..16) is the FFT route's, with the powers
+    of two 64, 128 and 8192 beside it, and each of its widths has a plan
+    (odd factor <= 15 over a power of two >= 128, or a power of two)."""
+    widths = [n for n in range(1, 16385) if sdft.cap_supported(n)]
     assert widths == [256 * q for q in range(1, 17)]
-    assert [n for n in range(1, 8193) if sdft.setup_route(n) == "fft"] == \
-        [128] + widths
-    for nbin in widths:
+    fft = [n for n in range(1, 16385) if sdft.setup_route(n) == "fft"]
+    assert set(fft) == {64, 128, 8192} | set(widths)
+    for nbin in fft:
         nz = nbin // 2
         m = nz // (nz & -nz)
         assert m <= 15 and (m == 1 or nz // m >= 128)
+        assert sdft.FFT_MIN_NBIN <= nbin <= sdft.FFT_MAX_NBIN
 
 
 def test_fft_blocks_per_sm():
     """Two blocks an SM wherever their shared memory fits (float32 rows);
-    one at 3840 (15 x 128) and 4096: what the kernel's launch bounds say,
-    and the tile rule fills the card by it."""
-    got = {n: sdft._fft_blocks_per_sm(n) for n in [128] +
+    one at 3840 (15 x 128), 4096 and 8192: what the kernel's launch
+    bounds say, and the tile rule fills the card by it."""
+    got = {n: sdft._fft_layout(n)[3] for n in [64, 128, 8192] +
            [256 * q for q in range(1, 17)]}
-    assert {n for n, b in got.items() if b == 1} == {3840, 4096}
+    assert {n for n, b in got.items() if b == 1} == {3840, 4096, 8192}
     assert set(got.values()) == {1, 2}
     assert sdft._fft_rows(1, 4096, 132, 1) == 32
     assert sdft._fft_rows(1, 4096, 132, 2) == 16
+
+
+@pytest.mark.parametrize("nbin,want", [
+    (64, (256, 2, 128, 2)), (128, (256, 4, 64, 2)), (256, (256, 8, 32, 2)),
+    (512, (256, 16, 16, 2)), (1024, (256, 32, 8, 2)),
+    (768, (256, 32, 8, 2)), (4096, (256, 128, 2, 1)),
+    (8192, (512, 256, 2, 1)),
+])
+def test_fft_layout(nbin, want):
+    """csrc/setup_fft.cu's block at nbin: (threads a block, threads a
+    worker, workers a block, blocks an SM).  A worker is nbin/32 threads:
+    several to a warp below 1024 bins (a power of two), rounded up to a
+    warp at 768 (24 threads), two of 256 in a 512-thread block at 8192."""
+    assert sdft._fft_layout(nbin) == want
+
+
+@pytest.mark.parametrize("B,nchan,wpb,want", [
+    (64, 4096, 128, 1024), (4, 4096, 128, 64), (1, 4096, 128, 16),
+    (64, 4096, 16, 128), (4, 4096, 2, 64),
+])
+def test_fft_rows_scale_with_the_group(B, nchan, wpb, want):
+    """132 SMs, two blocks each: tiles up to 8 groups of wpb rows (at
+    least 64 rows), halved while the card would be less than nine tenths
+    full."""
+    assert sdft._fft_rows(B, nchan, 132, 2, wpb) == want
 
 
 @pytest.mark.parametrize("B,nchan,want", [
