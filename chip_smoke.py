@@ -19,27 +19,35 @@ parallel), then:
      plans at 4096 channels x 768, 1280, 1536 and 3840 bins (odd factors
      3, 5, 3, 15), B=4, K=2, capped and full band, float32 and int16 +
      scale: the same checks, the same bits from a second call, timed
-     beside the same library calls and csrc/setup.cu on the same inputs;
+     beside the same library calls on the same inputs;
      the same at every power of two 64 .. 8192 (setup_pow2: B=64 up to
      512 bins, B=4 above; capped where the band cap applies); and the
-     setup's SGEMM route (csrc/setup.cu) at a width the FFT route does not
-     take, 4096 channels x 1000 bins, full band (nh=501) and a prefix
-     (nh=125), timed beside the same two library calls;
+     setup's second route ("rfft": torch.fft.rfft + csrc/setup_epilogue.cu)
+     at the widths the FFT route has no plan for, 4096 channels x 255,
+     1000, 4352, 4608, 6144, 7680 and 16384 bins, B=4, full band (and the
+     prefix nh=125 at 1000), float32 and int16 + scale (setup_no_plan): the
+     same checks, the epilogue alone against setup_epilogue_reference on
+     the same spectrum, timed beside rfft alone, the same library calls,
+     the fused bound and the route's two-kernel bound;
   3. the scattering-moments kernel against its float64 twin at B=32,
      nh=128 and 1025, phases in [-3, 3] turns, taus around
      8e-3 (nu/1500)^-4 rot over two decades: each of the 9 sums within
      2e-6 of sum_k |summand_k|, a second call bitwise equal; the geometry
      scat_geometry chose; kernel and plain float32 times; the same
      for 4096 items of one channel, each with an M2 row of its own (what
-     the per-channel scattering fit gives the kernel);
+     the per-channel scattering fit gives the kernel); then the three
+     phase kernels at nh = 8193 (16384 bins: harmonics past 4096) against
+     their float64 twins (phase_kernels_wide);
   4. runs the batched (phi, DM) fit at 4096 x 2048, B=64, capped and full
      band, on bench.py's data recipe generated on the card from a seeded
      torch.Generator: every item converged, |phi - phi_inj| <= 5 sigma,
      and the card's float32 kernel route agrees with the float64 twin
      route on the CPU within 0.01 sigma on a subset; prints fits/s; then
      the same at 4096 x 1536 (the radix-3 plan), at 4096 x 8192 (full
-     band only: three radix-16 passes; the twin on 2 items) and at 4096 x
-     64 (full band: the packed worker);
+     band only: three radix-16 passes; the twin on 2 items), at 4096 x
+     64 (full band: the packed worker), at 4096 x 16384 (B=8, full band,
+     the rfft setup route and harmonics past 4096; the twin on 1 item)
+     and at 4096 x 4608 (full band, the rfft route; the twin on 4 items);
   5. the scattering fit (phi, DM, tau, alpha), log10 tau, at 4096 x 2048,
      B=32, capped and full band, on scripts/tpu_scaling.py's --scat recipe
      generated on the card: every item converged, phi, DM, log10 tau at
@@ -50,7 +58,12 @@ parallel), then:
      int16 PSRFITS archives x 8 subints at 4096 x 2048 written here, with
      a float32 noiseless template: TOA count and injected dDM within 3
      sigma; then one such archive at 4096 x 1536 and one at 4096 x 8192
-     (the template not capped there);
+     (the template not capped there); then at 16384 bins, 512 channels
+     (phase_pipeline_wide): get_TOAs on 4 subints, get_TOAs(fit_scat=True)
+     on 4 scattered subints and get_narrowband_TOAs on one subint, each
+     within 0.01 sigma of the port's float64 CPU run of the same archive,
+     dDM and scat_time within 3 sigma of the injection, the narrowband
+     phases within 5 sigma above S/N 8;
   7. the same with get_TOAs(fit_scat=True) on two scattered archives x 4
      subints (the template unscattered): TOA count, scat_time within 3
      sigma of the injection at scat_ref_freq, injected dDM within 3 sigma;
@@ -128,8 +141,9 @@ ptxas's registers and spills are printed for every kernel; a spill in the
 setup FFT or the scattering kernel fails the run.  Launch counts are
 reset before each pipeline run (the main paths) and
 read after it; every kernel of that path must have launched there, and
-every setup launch of a path (at 2048 bins, one at 1536, one at 8192)
-must have taken the FFT route.  The
+every setup launch of a path must have taken the route setup_route
+names: the FFT route at 2048, 1536 and 8192 bins, the rfft route at
+16384.  The
 line before last is a JSON summary of the kernels (times, the bound from
 this run's shapes, the library call's time); the last is {"ok": true,
 "device": ...}.  Exits non-zero without a card, or when any phase fails.
@@ -178,18 +192,39 @@ def bound_ms(nbytes, nops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def setup_bound(B, nbin, nh, K, x_itemsize, scaled):
-    """fused_setup: x read once, model spectrum, weights and scales read,
-    Gr/Gi, sd and the K seed sums written; the least operations the
-    function needs, an FFT's 2.5 nbin log2(nbin) per row (the kernel's
-    DFT does 4 nbin nh), plus Parseval, cross-spectrum and seed sums."""
+def setup_bound(B, nbin, nh, K, x_itemsize, scaled, part="fused"):
+    """The fit setup's least time, or that of one part of its "rfft"
+    route.  Every part reads the model spectrum, weights and scales,
+    writes Gr/Gi, sd and the K seed sums, and does the cross-spectrum and
+    seed sums (6 nh + 4 K nh operations a row).  Besides, by part:
+      "fused": fused_setup as one kernel, the fused minimum: x read once;
+        an FFT's 2.5 nbin log2(nbin) operations a row (the DFT of
+        setup_fft.cu's passes) and Parseval's 3 nbin;
+      "route": the "rfft" route as two kernels: cuFFT reads the float32
+        rows (int16 rows cast first: read as int16, written and read as
+        float32) and writes the spectrum X (nbin/2 + 1 complex64 a row),
+        the epilogue reads X once; the operations of "fused".  Beside
+        "fused" it shows what the unfused transform costs;
+      "epilogue": csrc/setup_epilogue.cu alone: X read once; |X|^2 over
+        every harmonic."""
     rows = B * NCHAN
-    nbytes = (rows * nbin * x_itemsize + NCHAN * nh * 8 + rows * K * 4 +
+    nhf = nbin // 2 + 1
+    spectrum = rows * nhf * 8
+    if part == "fused":
+        inbytes = rows * nbin * x_itemsize
+    elif part == "route":
+        inbytes = (rows * nbin * (4 if x_itemsize == 4 else x_itemsize + 8) +
+                   2 * spectrum)
+    elif part == "epilogue":
+        inbytes = spectrum
+    else:
+        raise ValueError(f"setup_bound: no part {part!r}")
+    row_ops = (3 * nhf if part == "epilogue" else
+               2.5 * nbin * math.log2(nbin) + 3 * nbin)
+    nbytes = (inbytes + NCHAN * nh * 8 + rows * K * 4 +
               (rows * 4 if scaled else 0) + rows * nh * 8 + rows * 4 +
               B * K * nh * 8)
-    nops = rows * (2.5 * nbin * math.log2(nbin) + 3 * nbin + 6 * nh +
-                   4 * K * nh)
-    return bound_ms(nbytes, nops)
+    return bound_ms(nbytes, rows * (row_ops + 6 * nh + 4 * K * nh))
 
 
 def cuda_ms(fn, reps=10, warm=2):
@@ -365,93 +400,29 @@ def rfft_cross_spectrum(xx, mr, mi, sc):
     return Gr, Gi
 
 
-def setup_gemm_route(dev):
-    """The setup's SGEMM route (csrc/setup.cu) against its float64 twin at
-    a width the FFT route does not take: 4096 channels x 1000 bins, B=4,
-    K=2, the full band (nh=501) and a prefix of it (nh=125; 1000 bins
-    take no band cap), timed beside its two library calls (data from a
-    seed of its own: the other phases' draws stay what they were)."""
-    import numpy as np
-    import torch
-
-    from pulseportraiture_tpu_torch.ops import setup_dft as sdft
-
-    nbin, B = 1000, 4
-    if sdft.setup_route(nbin) != "gemm":
-        raise AssertionError(f"nbin={nbin} does not take the SGEMM route")
-    freqs = np.linspace(1100.0, 1900.0, NCHAN)
-    model = bench_template(freqs, nbin)
-    gen = torch.Generator(device=dev).manual_seed(5)
-    mft = torch.fft.rfft(torch.as_tensor(model, dtype=torch.float64,
-                                         device=dev), dim=-1)
-    shifts = torch.as_tensor(np.random.default_rng(6).uniform(
-        -0.05, 0.05, (B, 1)), device=dev).expand(B, NCHAN)
-    x = shifted_data(mft, shifts, gen, NOISE, dev, nbin)
-    mf = np.fft.rfft(model.astype(np.float64), axis=-1)
-    full = (mf.real.astype(np.float32), mf.imag.astype(np.float32))
-    full[0][:, 0] = 0.0
-    full[1][:, 0] = 0.0
-    wt = torch.ones((B, NCHAN, 2), dtype=torch.float32, device=dev)
-    wt[:, : NCHAN // 2, 1] = 0.0
-    rec = {}
-    for name, nh in (("prefix", 125), ("full_band", nbin // 2 + 1)):
-        mr, mi = full[0][:, :nh], full[1][:, :nh]
-        mr_t = torch.from_numpy(np.ascontiguousarray(mr)).to(dev)
-        mi_t = torch.from_numpy(np.ascontiguousarray(mi)).to(dev)
-        g0 = sdft.fused_setup.routes["gemm"]
-        got = sdft.fused_setup(x, mr_t, mi_t, w=wt)
-        torch.cuda.synchronize()
-        if sdft.fused_setup.routes["gemm"] != g0 + 1:
-            raise AssertionError("the SGEMM route did not launch")
-        ref = sdft.fused_setup_reference(x, mr_t.double(), mi_t.double(),
-                                         w=wt.double())
-        gmax = max(float(ref[0].abs().max()), float(ref[1].abs().max()))
-        smax = max(float(ref[3].abs().max()), float(ref[4].abs().max()))
-        errs = [float((g.double() - r).abs().max())
-                for g, r in zip(got, ref)]
-        bounds = [2e-5 * gmax, 2e-5 * gmax, 2e-5 * float(ref[2].abs().max()),
-                  2e-5 * smax, 2e-5 * smax]
-        if any(e > b for e, b in zip(errs, bounds)):
-            raise AssertionError(f"setup SGEMM route[{name}] disagrees with "
-                                 f"its twin: {errs} > {bounds}")
-        ms = cuda_ms(lambda: sdft.fused_setup(x, mr_t, mi_t, w=wt))
-        plain = cuda_ms(lambda: sdft.fused_setup_reference(x, mr_t, mi_t,
-                                                           w=wt))
-        E = dft_matrix(nh, dev, nbin)
-        lib = cuda_ms(lambda: gemm_cross_spectrum(x, E, mr_t, mi_t, None))
-        lib_fft = cuda_ms(lambda: rfft_cross_spectrum(x, mr_t, mi_t, None))
-        del E
-        bnd, by = setup_bound(B, nbin, nh, 2, 4, False)
-        log(f"setup SGEMM route[{name}] nbin={nbin} nh={nh} max "
-            f"abs err Gr/Gi/sd/gsr/gsi {errs} bounds {bounds}; kernel "
-            f"{ms:.4f} ms, plain (rfft twin) {plain:.4f} ms, library calls: "
-            f"float32 GEMM {lib:.4f} ms, rfft + cross-spectrum "
-            f"{lib_fft:.4f} ms; bound {bnd:.4f} ms ({by}) (B={B})")
-        rec[name] = dict(nbin=nbin, nh=nh, max_abs_err=max(errs[:2]), ms=ms,
-                         plain_ms=plain, library_ms=min(lib, lib_fft),
-                         library_gemm_ms=lib, library_rfft_ms=lib_fft,
-                         bound_ms=bnd, bound_by=by)
-    return rec
-
-
-def setup_case(tag, xx, mr_t, mi_t, wt, sc, nbin, sgemm=False):
-    """One fused_setup call on its FFT route against the float64 twin on
-    the card (2e-5 of the largest |output|), float32-class (within 4x of
-    a cuBLAS float32 DFT-as-GEMM's error, a bound a TF32 DFT exceeds),
-    the same bits from a second call; then timed beside the plain twin,
-    the two library calls (float32 GEMM, rfft + cross-spectrum) and, with
-    sgemm, csrc/setup.cu on the same inputs (sdft._launch_gemm).  Returns
-    the record."""
+def setup_case(tag, xx, mr_t, mi_t, wt, sc, nbin):
+    """One fused_setup call on the route setup_route names against the
+    float64 twin on the card (2e-5 of the largest |output|, 4e-6 above
+    8192 bins),
+    float32-class (within 4x of a cuBLAS float32 DFT-as-GEMM's error, a
+    bound a TF32 DFT exceeds), the same bits from a second call; then
+    timed beside the plain twin and the two library calls (float32 GEMM,
+    rfft + cross-spectrum).  On the "rfft" route also the epilogue
+    (csrc/setup_epilogue.cu) alone on the same spectrum against
+    setup_epilogue_reference in float64 (4e-6 of the largest |output|),
+    timed beside torch.fft.rfft alone, with the route's two-kernel bound
+    (setup_bound's "route") and the epilogue's own.  Returns the record."""
     import torch
 
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
 
     B = xx.shape[0]
-    f0 = sdft.fused_setup.routes["fft"]
+    route = sdft.setup_route(nbin)
+    f0 = sdft.fused_setup.routes[route]
     got = sdft.fused_setup(xx, mr_t, mi_t, w=wt, scale=sc)
     torch.cuda.synchronize()
-    if sdft.fused_setup.routes["fft"] != f0 + 1:
-        raise AssertionError(f"setup[{tag}] did not take the FFT route")
+    if sdft.fused_setup.routes[route] != f0 + 1:
+        raise AssertionError(f"setup[{tag}] did not take the {route} route")
     again = sdft.fused_setup(xx, mr_t, mi_t, w=wt, scale=sc)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -463,15 +434,24 @@ def setup_case(tag, xx, mr_t, mi_t, wt, sc, nbin, sgemm=False):
     gmax = max(float(ref[0].abs().max()), float(ref[1].abs().max()))
     smax = max(float(ref[3].abs().max()), float(ref[4].abs().max()))
     errs = [float((g.double() - r).abs().max()) for g, r in zip(got, ref)]
-    bounds = [2e-5 * gmax, 2e-5 * gmax, 2e-5 * float(ref[2].abs().max()),
-              2e-5 * smax, 2e-5 * smax]
+    # 2e-5 of the largest |output|, and 4e-6 above 8192 bins: at 16384
+    # 2e-5 of it (47.5) lies above a TF32 DFT's error (43.0), while the
+    # route's own is 0.48 (f32) and 0.55 (int16), so 4e-6 (9.5) sits 17x
+    # above the route's and 4.5x below TF32's
+    rel = 2e-5 if nbin <= 8192 else 4e-6
+    bounds = [rel * gmax, rel * gmax, rel * float(ref[2].abs().max()),
+              rel * smax, rel * smax]
     nh = mr_t.shape[-1]
-    log(f"setup[{tag}] nh={nh} max abs err Gr/Gi/sd/gsr/gsi {errs} bounds "
-        f"{bounds}")
+    log(f"setup[{tag}] {route} route, nh={nh} max abs err Gr/Gi/sd/gsr/gsi "
+        f"{errs} bounds {bounds}")
     if any(e > b for e, b in zip(errs, bounds)):
         raise AssertionError(f"setup[{tag}] disagrees with its twin")
     # The DFT must be float32-class: within 4x of a cuBLAS float32
-    # GEMM's error on the same inputs, a bound a TF32 DFT must exceed.
+    # GEMM's error on the same inputs, a bound a TF32 DFT must exceed, and
+    # a quarter of a TF32 DFT's error or less.  Above 8192 bins the GEMM
+    # sums so many terms that its own error nears the TF32 one (16384:
+    # 4x the GEMM's is above the TF32 DFT's), so there only the last
+    # holds the line between the two classes.
     e_cls = {}
     E = dft_matrix(nh, xx.device, nbin)
     for cls, tf in (("f32", False), ("tf32", True)):
@@ -484,7 +464,10 @@ def setup_case(tag, xx, mr_t, mi_t, wt, sc, nbin, sgemm=False):
         f"GEMM {e_cls['f32']}, TF32-input GEMM {e_cls['tf32']}")
     if max(errs[:2]) > 4 * e_cls["f32"]:
         raise AssertionError(f"setup[{tag}] is not float32-class")
-    if 4 * e_cls["f32"] >= e_cls["tf32"]:
+    if 4 * max(errs[:2]) >= e_cls["tf32"]:
+        raise AssertionError(f"setup[{tag}] is within 4x of a TF32 DFT's "
+                             "error")
+    if nbin <= 8192 and 4 * e_cls["f32"] >= e_cls["tf32"]:
         raise AssertionError(f"setup[{tag}]: the float32-class bound does "
                              "not exclude a TF32 DFT")
     ms = cuda_ms(lambda: sdft.fused_setup(xx, mr_t, mi_t, w=wt, scale=sc))
@@ -494,17 +477,42 @@ def setup_case(tag, xx, mr_t, mi_t, wt, sc, nbin, sgemm=False):
     lib_fft = cuda_ms(lambda: rfft_cross_spectrum(xx, mr_t, mi_t, sc))
     del E
     bnd, by = setup_bound(B, nbin, nh, 2, xx.element_size(), sc is not None)
-    rec = dict(max_abs_err=max(errs[:2]), ms=ms, plain_ms=plain,
+    rec = dict(route=route, max_abs_err=max(errs[:2]), ms=ms, plain_ms=plain,
                library_ms=min(lib, lib_fft), library_gemm_ms=lib,
                library_rfft_ms=lib_fft, bound_ms=bnd, bound_by=by)
     extra = ""
-    if sgemm:
-        rec["sgemm_route_ms"] = cuda_ms(lambda: sdft._launch_gemm(
-            xx, mr_t, mi_t, False, wt, sc), reps=5)
-        extra = f", csrc/setup.cu {rec['sgemm_route_ms']:.4f} ms"
+    if route == "rfft":
+        X = torch.fft.rfft(xx.float(), dim=-1)
+        epi = sdft._launch_epilogue(X, mr_t, mi_t, False, wt, sc)
+        twin = sdft.setup_epilogue_reference(
+            X, mr_t.double(), mi_t.double(), w=wt.double(),
+            scale=None if sc is None else sc.double(),
+            rows=sdft._epilogue_rows(B, NCHAN, torch.cuda.
+                                     get_device_properties(xx.device).
+                                     multi_processor_count))
+        e_epi = [float((g.double() - r).abs().max()) / float(r.abs().max())
+                 for g, r in zip(epi, twin)]
+        del epi, twin
+        if max(e_epi) > 4e-6:
+            raise AssertionError(f"setup[{tag}] epilogue disagrees with "
+                                 f"setup_epilogue_reference: {e_epi}")
+        rec["epilogue_ms"] = cuda_ms(lambda: sdft._launch_epilogue(
+            X, mr_t, mi_t, False, wt, sc))
+        rec["epilogue_rel_err"] = max(e_epi)
+        rec["rfft_alone_ms"] = cuda_ms(
+            lambda: torch.fft.rfft(xx.float(), dim=-1))
+        del X
+        rec["route_bound_ms"], _ = setup_bound(
+            B, nbin, nh, 2, xx.element_size(), sc is not None, "route")
+        rec["epilogue_bound_ms"], _ = setup_bound(
+            B, nbin, nh, 2, 4, sc is not None, "epilogue")
+        extra = (f"; epilogue alone {rec['epilogue_ms']:.4f} ms (rel err "
+                 f"{max(e_epi):.2e}; bound {rec['epilogue_bound_ms']:.4f} "
+                 f"ms), rfft alone {rec['rfft_alone_ms']:.4f} ms, route "
+                 f"bound {rec['route_bound_ms']:.4f} ms")
     log(f"setup[{tag}] kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
         f"calls: float32 GEMM {lib:.4f} ms, rfft + cross-spectrum "
-        f"{lib_fft:.4f} ms{extra}; bound {bnd:.4f} ms ({by}) (B={B})")
+        f"{lib_fft:.4f} ms; bound {bnd:.4f} ms ({by}) (B={B}){extra}")
     return rec
 
 
@@ -548,8 +556,8 @@ def setup_inputs(dev, nbin, B):
 def setup_mixed_radix(dev):
     """The FFT route's mixed-radix plans at 4096 channels x nbin in
     MIXED_NBINS, B=4, K=2: capped (the band cap's nh) and full band, each
-    with float32 rows and with int16 rows + scale, through setup_case with
-    csrc/setup.cu timed beside it (setup_inputs' data)."""
+    with float32 rows and with int16 rows + scale, through setup_case
+    (setup_inputs' data)."""
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
 
     rec = {}
@@ -561,7 +569,7 @@ def setup_mixed_radix(dev):
             for rows, xx, sc in (("f32", x, None), ("i16", raw, scl)):
                 name = f"{nbin}_{route}_{rows}"
                 rec[name] = dict(nbin=nbin, nh=mr_t.shape[-1], **setup_case(
-                    name, xx, mr_t, mi_t, wt, sc, nbin, sgemm=True))
+                    name, xx, mr_t, mi_t, wt, sc, nbin))
         del x, raw, scl
     return rec
 
@@ -575,9 +583,8 @@ def setup_pow2(dev):
     4096 channels, B=64 up to 512 bins (so that a time is not one launch's
     latency) and B=4 above, K=2: full band and capped where the band cap
     applies, each with float32 rows and with int16 rows + scale, through
-    setup_case with csrc/setup.cu timed beside it (setup_inputs' data;
-    scripts/torch_setup_pow2.py times the same cases in another
-    checkout)."""
+    setup_case (setup_inputs' data; scripts/torch_setup_pow2.py times the
+    same cases in another checkout)."""
     import torch
 
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
@@ -593,8 +600,46 @@ def setup_pow2(dev):
                 name = f"{nbin}_{route}_{rows}"
                 rec[name] = dict(nbin=nbin, B=B, nh=mr_t.shape[-1],
                                  **setup_case(name, xx, mr_t, mi_t, wt, sc,
-                                              nbin, sgemm=True))
+                                              nbin))
         del x, raw, scl
+        torch.cuda.empty_cache()
+    return rec
+
+
+# the widths csrc/setup_fft.cu has no plan for that chip_smoke.py holds
+# the "rfft" route at: odd, 8 x 125, 256 x 17, 18, 24 and 30, and 2 x 8192
+NOPLAN_NBINS = (255, 1000, 4352, 4608, 6144, 7680, 16384)
+
+
+def setup_no_plan(dev):
+    """The "rfft" route (torch.fft.rfft + csrc/setup_epilogue.cu) at 4096
+    channels x nbin in NOPLAN_NBINS, B=4, K=2: the full band (no band cap
+    at these widths) and, at 1000 bins, the prefix nh=125 too, each with
+    float32 rows and with int16 rows + scale, through setup_case
+    (setup_inputs' data).  The DFT-as-SGEMM kernel these widths took
+    before is timed against this route by scripts/torch_setup_pow2.py
+    --root <parent checkout>."""
+    import torch
+
+    from pulseportraiture_tpu_torch.ops import setup_dft as sdft
+
+    rec = {}
+    for nbin in NOPLAN_NBINS:
+        if sdft.setup_route(nbin) != "rfft":
+            raise AssertionError(f"nbin={nbin} does not take the rfft route")
+        x, raw, scl, wt, routes = setup_inputs(dev, nbin, 4)
+        mr_t, mi_t = routes["full_band"]
+        cases = [("full_band", mr_t, mi_t)]
+        if nbin == 1000:
+            cases.append(("prefix", mr_t[:, :125].contiguous(),
+                          mi_t[:, :125].contiguous()))
+        for band, mr_c, mi_c in cases:
+            for rows, xx, sc in (("f32", x, None), ("i16", raw, scl)):
+                name = f"{nbin}_{band}_{rows}"
+                rec[name] = dict(nbin=nbin, B=4, nh=mr_c.shape[-1],
+                                 **setup_case(name, xx, mr_c, mi_c, wt, sc,
+                                              nbin))
+        del x, raw, scl, routes
         torch.cuda.empty_cache()
     return rec
 
@@ -719,16 +764,16 @@ SCAT_SHAPES = (("capped", (32, NCHAN), 128, False),
                ("per_item_full_band", (NCHAN, 1), NBIN // 2 + 1, True))
 
 
-def scat_inputs(dev, gen, lead, nh, per_item):
+def scat_inputs(dev, gen, lead, nh, per_item, nbin=NBIN):
     """(phis, taus, Gr, Gi, M2) float32 on the card: Gr, Gi ~ N(0, 1),
-    M2 = |rfft(bench_template)|^2, phases in [-3, 3] turns, taus around
-    TAU0 (nu/1500)^ALPHA0 over two decades."""
+    M2 = |rfft(bench_template at nbin bins)|^2, phases in [-3, 3] turns,
+    taus around TAU0 (nu/1500)^ALPHA0 over two decades."""
     import numpy as np
     import torch
     f32 = dict(dtype=torch.float32, device=dev, generator=gen)
     freqs = torch.linspace(1100.0, 1900.0, NCHAN, device=dev)
-    mf = np.fft.rfft(bench_template(freqs.cpu().numpy()).astype(np.float64),
-                     axis=-1)
+    mf = np.fft.rfft(bench_template(freqs.cpu().numpy(), nbin).astype(
+        np.float64), axis=-1)
     Gr = torch.randn(lead + (nh,), **f32)
     Gi = torch.randn(lead + (nh,), **f32)
     M2 = torch.as_tensor(np.abs(mf[:, :nh]) ** 2, dtype=torch.float32,
@@ -801,10 +846,128 @@ def phase_scat_kernel(dev):
     return rec
 
 
-def phase_fit(dev, nbin=NBIN, nc=8):
-    """Batched fits at 4096 x nbin, B=64, capped (where the band cap
+def phase_kernels_wide(dev):
+    """The three phase kernels at nh = 8193 (16384 bins, full band: k past
+    4096, where phase_trig reduces k mod 8192 and the scattering
+    kernel's float64 factor angles take it as it is) against their
+    float64 twins: moments.cu at B=4 x 4096 rows, moments_merged.cu at
+    one 4096-row subint, scat_moments.cu at B=4 x 4096 rows against one
+    shared M2 (the twin in 8 pieces), with the tolerances of the 2048-bin
+    phases (2e-6 of the summed magnitudes); kernel, plain float32 twin
+    and bound times."""
+    import torch
+
+    from pulseportraiture_tpu_torch.fitters.stats import SCAT_NAMES
+    from pulseportraiture_tpu_torch.ops import moments as mom
+
+    nbin, nh, Bm = 16384, 8193, 4
+    gen = torch.Generator(device=dev).manual_seed(11)
+    f32 = dict(dtype=torch.float32, device=dev, generator=gen)
+    kk = torch.arange(nh, dtype=torch.float64, device=dev)
+    rec = {}
+    # moments.cu
+    Gr = torch.randn((Bm, NCHAN, nh), **f32)
+    Gi = torch.randn((Bm, NCHAN, nh), **f32)
+    phis = 6.0 * torch.rand((Bm, NCHAN), **f32) - 3.0
+    got = mom.phase_moments(phis, Gr, Gi)
+    torch.cuda.synchronize()
+    errs = [0.0] * 3
+    for i in range(Bm):
+        ref = mom.phase_moments_reference(phis[i].double(), Gr[i].double(),
+                                          Gi[i].double())
+        a = (Gr[i].abs() + Gi[i].abs()).double()
+        for p_, (g, r) in enumerate(zip(got, ref)):
+            wsum = (a * kk ** p_).sum(-1) * (2 * math.pi) ** p_
+            e = (g[i].double() - r).abs()
+            errs[p_] = max(errs[p_], float(e.max()))
+            if bool((e > 2e-6 * (wsum + a.sum(-1))).any()):
+                raise AssertionError(f"moments[nh={nh}] term {p_} disagrees")
+        del ref, a
+    ms = cuda_ms(lambda: mom.phase_moments(phis, Gr, Gi))
+    plain = cuda_ms(lambda: mom.phase_moments_reference(phis, Gr, Gi),
+                    reps=3, warm=1)
+    rows = Bm * NCHAN
+    bnd, by = bound_ms(rows * nh * 8 + rows * 4 + 3 * rows * 4,
+                       rows * nh * PHASE_OPS)
+    log(f"moments[nh={nh}] max abs err C/Cp/Cpp {errs}; kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}) (B={Bm})")
+    rec["moments"] = dict(nh=nh, B=Bm, max_abs_err=errs[0],
+                          max_abs_err_all=errs, ms=ms, plain_ms=plain,
+                          bound_ms=bnd, bound_by=by)
+    # moments_merged.cu on one subint, the merged stream [Gr | Gi]
+    g = torch.cat([Gr[0], Gi[0]], dim=-1).contiguous()
+    p0 = phis[0].contiguous()
+    del Gr, Gi
+    got = mom.phase_moments_merged(p0, g)
+    torch.cuda.synchronize()
+    ref = mom.phase_moments_merged_reference(p0.double(), g.double())
+    a = (g[:, :nh].abs() + g[:, nh:].abs()).double()
+    errs = []
+    for p_, (o, r) in enumerate(zip(got, ref)):
+        wsum = (a * kk ** p_).sum(-1) * (2 * math.pi) ** p_
+        e = (o.double() - r).abs()
+        errs.append(float(e.max()))
+        if bool((e > 2e-6 * (wsum + a.sum(-1))).any()):
+            raise AssertionError(f"merged moments[nh={nh}] term {p_} "
+                                 "disagrees with its twin")
+    ms = cuda_ms(lambda: mom.phase_moments_merged(p0, g))
+    plain = cuda_ms(lambda: mom.phase_moments_merged_reference(p0, g))
+    bnd, by = bound_ms(NCHAN * nh * 8 + NCHAN * 4 + 3 * NCHAN * 4,
+                       NCHAN * nh * PHASE_OPS)
+    log(f"merged moments[nh={nh}] one subint ({NCHAN} rows) max abs err "
+        f"{errs}; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{bnd:.4f} ms ({by})")
+    rec["merged"] = dict(nh=nh, rows=NCHAN, max_abs_err=errs[0],
+                         max_abs_err_all=errs, ms=ms, plain_ms=plain,
+                         bound_ms=bnd, bound_by=by)
+    del g, ref, a
+    # scat_moments.cu
+    sphis, taus, Gr, Gi, M2 = scat_inputs(dev, gen, (Bm, NCHAN), nh, False,
+                                          nbin)
+    got = mom.scattering_moments(sphis, taus, Gr, Gi, M2)
+    torch.cuda.synchronize()
+    geometry = mom.scat_launch_geometry(sphis, M2)
+    again = mom.scattering_moments(sphis, taus, Gr, Gi, M2)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"scattering_moments[nh={nh}]: a second call "
+                             "gave other bits")
+    del again
+    errs = [0.0] * 9
+    step = NCHAN // 2
+    for i in range(Bm):
+        for c in range(0, NCHAN, step):
+            sl = (i, slice(c, c + step))
+            args = [x.double() for x in (sphis[sl], taus[sl], Gr[sl],
+                                         Gi[sl], M2[c:c + step])]
+            ref = mom.scattering_moments_reference(*args)
+            scale = mom.scattering_moments_reference(*args, absolute=True)
+            for j, (o, r, b) in enumerate(zip(got, ref, scale)):
+                e = (o[sl].double() - r).abs()
+                errs[j] = max(errs[j], float(e.max()))
+                if bool((e > 2e-6 * b).any()):
+                    raise AssertionError(f"scattering_moments[nh={nh}] "
+                                         f"{SCAT_NAMES[j]} disagrees")
+            del args, ref, scale
+    ms = cuda_ms(lambda: mom.scattering_moments(sphis, taus, Gr, Gi, M2))
+    plain = cuda_ms(lambda: mom.scattering_moments_reference(
+        sphis, taus, Gr, Gi, M2), reps=2, warm=1)
+    bnd, by = scat_bound(sphis, M2, nh)
+    log(f"scattering_moments[nh={nh}] max abs err "
+        f"{dict(zip(SCAT_NAMES, errs))}; kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}) (B={Bm}; lanes per row, "
+        f"rows per block, M2 rows a tile {geometry}; a second call bitwise "
+        f"equal)")
+    rec["scattering_moments"] = dict(
+        nh=nh, B=Bm, max_abs_err=max(errs), max_abs_err_all=errs, ms=ms,
+        plain_ms=plain, bound_ms=bnd, bound_by=by, geometry=list(geometry))
+    return rec
+
+
+def phase_fit(dev, nbin=NBIN, nc=8, B=64):
+    """Batched fits at 4096 x nbin, B items, capped (where the band cap
     applies) and full band; the float64 twin route on the CPU on nc
-    items."""
+    items; every setup launch on the route setup_route names."""
     import torch
 
     from pulseportraiture_tpu_torch.config import DCONST
@@ -814,7 +977,6 @@ def phase_fit(dev, nbin=NBIN, nc=8):
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
     from pulseportraiture_tpu_torch.ops.transform import phase_transform
 
-    B = 64
     data, freqs, model, phis, dms, nu_fit = phidm_recipe(dev, B, nbin=nbin)
     routes = template_routes(model, nbin)
     at = "" if nbin == NBIN else f" at {nbin} bins"
@@ -826,7 +988,8 @@ def phase_fit(dev, nbin=NBIN, nc=8):
 
     out = {}
     sd0, mm0 = sdft.fused_setup.launches, mom.phase_moments.launches
-    fft0 = sdft.fused_setup.routes["fft"]
+    route = sdft.setup_route(nbin)
+    r0 = sdft.fused_setup.routes[route]
     for name, mft_ri in routes.items():
         def run():
             return fit_portrait_full_batch(
@@ -886,9 +1049,9 @@ def phase_fit(dev, nbin=NBIN, nc=8):
         f"phase_moments {launches[1]}")
     if min(launches) <= 0:
         raise AssertionError("a kernel did not launch in the fit phase")
-    if sdft.fused_setup.routes["fft"] - fft0 != launches[0]:
-        raise AssertionError("a setup launch of the fit phase left the FFT "
-                             "route")
+    if sdft.fused_setup.routes[route] - r0 != launches[0]:
+        raise AssertionError(f"a setup launch of the fit phase left the "
+                             f"{route} route")
     return out
 
 
@@ -1074,16 +1237,18 @@ def reset_launches():
     from pulseportraiture_tpu_torch.ops import moments as mom
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
     sdft.fused_setup.launches = 0
-    sdft.fused_setup.routes = {"fft": 0, "gemm": 0}
+    sdft.fused_setup.routes = {"fft": 0, "rfft": 0}
     mom.phase_moments.launches = 0
     mom.scattering_moments.launches = 0
     mom.phase_moments_merged.launches = 0
 
 
-def read_launches():
+def read_launches(nbin=NBIN):
+    """The launch counts since reset_launches, beside the width nbin of
+    the path that made them (the route check reads setup_route(nbin))."""
     from pulseportraiture_tpu_torch.ops import moments as mom
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
-    return {"fused_setup": sdft.fused_setup.launches,
+    return {"nbin": nbin, "fused_setup": sdft.fused_setup.launches,
             "fused_setup_routes": dict(sdft.fused_setup.routes),
             "phase_moments": mom.phase_moments.launches,
             "scattering_moments": mom.scattering_moments.launches,
@@ -1113,7 +1278,7 @@ def phase_pipeline(rng, nbin=NBIN, narch=2):
     t0 = time.perf_counter()
     gt.get_TOAs(quiet=True)
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    launches = read_launches(nbin)
     tim = os.path.join(WORK, "smoke.tim")
     lines = write_TOAs(gt.TOA_list, outfile=tim, append=False)
     log(f"{tag}: {len(lines)} TOAs in {wall:.2f} s "
@@ -1189,6 +1354,120 @@ def phase_pipeline_scat(rng):
         raise AssertionError(f"a kernel did not launch on the fit_scat "
                              f"path: {launches}")
     return launches, (files, dDMs, tmpl), gt.TOA_list
+
+
+# the widest pipelines: 16384 bins at a depth of 512 channels x 4
+# subints (loading bound the 8192-bin pipeline at 4096 channels; the
+# float64 CPU run of the fit_scat path took 33.7 s at 1024 channels)
+WIDE_NBIN, WIDE_NCHAN, WIDE_NSUB = 16384, 512, 4
+
+
+def phase_pipeline_wide(rng):
+    """The pipelines at WIDE_NBIN bins, full band (no band cap above 4096
+    bins; the "rfft" setup route and the phase kernels past k = 4096), on
+    WIDE_NCHAN-channel int16 archives: get_TOAs on one archive of
+    WIDE_NSUB subints, get_TOAs(fit_scat=True) on a scattered one and
+    get_narrowband_TOAs on one subint.  Each against the port's float64
+    run of the same archive on the CPU within 0.01 sigma (TOA, DM; log10
+    scat_time); dDM and scat_time within 3 sigma of the injection; the
+    narrowband phases within 5 sigma of it above S/N 8 (512 channels:
+    a 3-sigma bound would fail by chance).  Returns the launch counts of
+    each run (the main paths: counts reset just before, read just after)
+    and a record."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
+
+    nbin, nchan, nsub = WIDE_NBIN, WIDE_NCHAN, WIDE_NSUB
+    t_scat = TAU0 * P
+    t0 = time.perf_counter()
+    common = dict(narch=1, nchan=nchan, nbin=nbin)
+    files, dDMs, tmpl, _ = write_archives(rng, nsub=nsub, tag="wide",
+                                          **common)
+    sfiles, sdDMs, _, _ = write_archives(rng, nsub=nsub, t_scat=t_scat,
+                                         tag="widescat", **common)
+    nfiles, _, _, injected = write_archives(rng, nsub=1, tag="widenb",
+                                            **common)
+    log(f"pipelines {nbin}: wrote 1 x {nsub} (plain), 1 x {nsub} "
+        f"(scattered) and 1 x 1 (narrowband) x {nchan} x {nbin} int16 "
+        f"archives in {time.perf_counter() - t0:.2f} s")
+    runs = (("pipeline_16384", files, dDMs, "get_TOAs", {}),
+            ("pipeline_16384_fit_scat", sfiles, sdDMs, "get_TOAs",
+             dict(fit_scat=True)),
+            ("narrowband_16384", nfiles, None, "get_narrowband_TOAs",
+             dict(print_phase=True)))
+    paths, rec = {}, {}
+    for name, fl, dd, method, kw in runs:
+        gt = GetTOAs(fl, tmpl, device="cuda", quiet=True)
+        reset_launches()
+        t0 = time.perf_counter()
+        getattr(gt, method)(quiet=True, **kw)
+        wall = time.perf_counter() - t0
+        paths[name] = launches = read_launches(WIDE_NBIN)
+        t0 = time.perf_counter()
+        ref = GetTOAs(fl, tmpl, device="cpu", dtype=torch.float64,
+                      quiet=True)
+        getattr(ref, method)(quiet=True, **kw)
+        cpu_s = time.perf_counter() - t0
+        n = len(gt.TOA_list)
+        r = dict(toas=n, wall_s=wall, cpu_f64_s=cpu_s,
+                 timing=dict(gt.fit_timing), launches=launches)
+        if dd is not None:
+            if n != nsub or len(ref.TOA_list) != nsub:
+                raise AssertionError(f"{name}: {n} and {len(ref.TOA_list)} "
+                                     f"TOAs, expected {nsub}")
+            ddm = np.asarray(gt.DeltaDM_means)
+            err = np.asarray(gt.DeltaDM_errs)
+            if not np.all(np.abs(ddm - dd) <= 3 * err):
+                raise AssertionError(f"{name}: injected dDM {dd} not within "
+                                     f"3 sigma: {ddm} +- {err}")
+            z = toa_sigmas(gt.TOA_list, ref.TOA_list)[:2]
+            r.update(delta_dm=ddm.tolist(), delta_dm_err=err.tolist(),
+                     injected=list(dd))
+            if kw.get("fit_scat"):
+                zs = []
+                for t in gt.TOA_list:
+                    f = t.flags
+                    inj = t_scat * (f["scat_ref_freq"] / 1500.0) ** ALPHA0
+                    zs.append((math.log10(f["scat_time"] * 1e-6) -
+                               math.log10(inj)) / f["log10_scat_time_err"])
+                r["scat_time_z"] = zs
+                if max(abs(v) for v in zs) > 3:
+                    raise AssertionError(f"{name}: scat_time not within 3 "
+                                         f"sigma of the injection: {zs}")
+                z.append(scat_sigmas(gt.TOA_list, ref.TOA_list))
+                kern = "scattering_moments"
+            else:
+                kern = "phase_moments"
+            need = ("fused_setup", kern)
+        else:
+            if n != nchan or len(ref.TOA_list) != nchan:
+                raise AssertionError(f"{name}: {n} and {len(ref.TOA_list)} "
+                                     f"TOAs, expected {nchan}")
+            phs = np.array([t.flags["phs"] for t in gt.TOA_list])
+            err = np.array([t.flags["phs_err"] for t in gt.TOA_list])
+            snr = np.array([t.flags["snr"] for t in gt.TOA_list])
+            zi = (np.mod(phs + injected.ravel() + 0.5, 1.0) - 0.5) / err
+            ok = snr > 8.0
+            if not ok.any() or np.abs(zi[ok]).max() > 5.0:
+                raise AssertionError(f"{name}: phases off the injection")
+            r["max_z_injection"] = float(np.abs(zi[ok]).max())
+            z = [max(abs(mjd_diff_rot(a, b)) * P * 1e6 / b.TOA_error
+                     for a, b in zip(gt.TOA_list, ref.TOA_list))]
+            need = ("phase_moments_merged",)
+        r["vs_f64_sigma"] = z
+        log(f"{name}: {n} TOAs in {wall:.2f} s (timing "
+            f"{json.dumps(gt.fit_timing)}); card vs the float64 CPU run "
+            f"({cpu_s:.1f} s): {z} sigma; launches {launches}")
+        if max(z) > 1e-2:
+            raise AssertionError(f"{name}: card vs float64 CPU run {z} "
+                                 "sigma > 0.01")
+        if min(launches[k] for k in need) <= 0:
+            raise AssertionError(f"a kernel did not launch on the {name} "
+                                 f"path: {launches}")
+        rec[name] = r
+    return paths, rec
 
 
 def phase_merged_kernel(dev):
@@ -1555,7 +1834,8 @@ def phase_gm_fit(dev):
     inj = torch.stack([phis, dms, gms], dim=-1).cpu()
     out = {}
     sd0, mm0 = sdft.fused_setup.launches, mom.phase_moments.launches
-    fft0 = sdft.fused_setup.routes["fft"]
+    route = sdft.setup_route(NBIN)
+    r0 = sdft.fused_setup.routes[route]
     for name, mft_ri in routes.items():
         def run():
             return fit_portrait_full_batch(
@@ -1609,7 +1889,7 @@ def phase_gm_fit(dev):
         f"phase_moments {launches[1]}")
     if min(launches) <= 0:
         raise AssertionError("a kernel did not launch in the gm-fit phase")
-    if sdft.fused_setup.routes["fft"] - fft0 != launches[0]:
+    if sdft.fused_setup.routes[route] - r0 != launches[0]:
         raise AssertionError("a setup launch of the gm-fit phase left the "
                              "FFT route")
     return out
@@ -2167,6 +2447,28 @@ def phase_template_build(seed=7):
     return full["launches"], rec
 
 
+def epilogue_entry(paths, nrec):
+    """fused_setup's second route in the kernels line: the "rfft" route,
+    torch.fft.rfft + csrc/setup_epilogue.cu, with the launches the main
+    paths made on it and its records at NOPLAN_NBINS (the headline: 1000
+    bins, full band, float32 rows).  It replaces no TPU kernel (the JAX
+    package sets these widths up with stats.make_setup on XLA's
+    transform); `replaces` names that function."""
+    head = nrec["1000_full_band_f32"]
+    by_path = {p: c["fused_setup_routes"]["rfft"] for p, c in paths.items()}
+    return dict(
+        name="setup_epilogue", route="cuda",
+        source="pulseportraiture_tpu_torch/csrc/setup_epilogue.cu",
+        replaces="pulseportraiture_tpu/fitters/stats.py:120",
+        taken_when="nbin is none of 64, 128, 8192 and 256 q, q = 1..16",
+        launches=sum(by_path.values()), launches_by_path=by_path,
+        max_abs_err=head["max_abs_err"], ms=head["ms"],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"],
+        epilogue_ms=head["epilogue_ms"],
+        route_bound_ms=head["route_bound_ms"], widths=nrec)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2195,41 +2497,83 @@ def main():
                 "0 bytes spill stores, 0 bytes spill loads" not in line:
             raise AssertionError(f"a kernel spills: {entry.strip()}: "
                                  f"{line.strip()}")
+    walls, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        """The wall since the last lap (or the kernel build), as name's."""
+        now = time.perf_counter()
+        walls[name] = now - t_lap[0]
+        t_lap[0] = now
+        log(f"phase wall {name}: {walls[name]:.2f} s")
+
     rng = np.random.default_rng(0)
     krec = phase_kernels(dev, rng)
+    lap("kernels_2048")
     xrec = setup_mixed_radix(dev)
+    lap("setup_mixed_radix")
     prec = setup_pow2(dev)
-    grec = setup_gemm_route(dev)
+    lap("setup_pow2")
+    nrec = setup_no_plan(dev)
+    lap("setup_no_plan")
     srec = phase_scat_kernel(dev)
+    lap("scat_kernel")
     mrec = phase_merged_kernel(dev)
+    lap("merged_kernel")
+    wrec = phase_kernels_wide(dev)
+    lap("kernels_nh8193")
     fits = phase_fit(dev)
+    lap("fit_2048")
     fits_1536 = phase_fit(dev, 1536)
+    lap("fit_1536")
     # the widest width (full band only: no band cap) and the narrowest;
     # at 8192 the float64 CPU twin on 2 items keeps it under ~30 s
     fits_8192 = phase_fit(dev, 8192, nc=2)
+    lap("fit_8192")
     fits_64 = phase_fit(dev, 64)
+    lap("fit_64")
+    # past 8192 bins (B=8, full band; the float64 CPU twin on one item
+    # keeps it near the 8192-bin phase's time) and at a width without an
+    # FFT plan inside 64..8192
+    fits_16384 = phase_fit(dev, 16384, nc=1, B=8)
+    lap("fit_16384")
+    fits_4608 = phase_fit(dev, 4608, nc=4)
+    lap("fit_4608")
     scat_fits = phase_scat_fit(dev)
+    lap("scat_fit")
     gm_fits = phase_gm_fit(dev)
+    lap("gm_fit")
     try:
         os.makedirs(WORK, exist_ok=True)
         prof = phase_profiling(dev)
+        lap("profiling")
         paths, unsharded = {}, {}
         paths["pipeline"], pipe_arch, unsharded["pipeline"], _ = \
             phase_pipeline(rng)
+        lap("pipeline")
         # one archive at a width that is not a power of two and one at
         # the widest (generators of their own: the other phases' draws
         # stay what they were)
         paths["pipeline_1536"], _, _, _ = phase_pipeline(
             np.random.default_rng(1536), nbin=1536, narch=1)
+        lap("pipeline_1536")
         paths["pipeline_8192"], _, _, pipeline_8192 = phase_pipeline(
             np.random.default_rng(8192), nbin=8192, narch=1)
+        lap("pipeline_8192")
+        wide_paths, pipelines_16384 = phase_pipeline_wide(
+            np.random.default_rng(16384))
+        paths.update(wide_paths)
+        lap("pipelines_16384")
         paths["pipeline_fit_scat"], scat_arch, \
             unsharded["pipeline_fit_scat"] = phase_pipeline_scat(rng)
+        lap("pipeline_fit_scat")
         paths["pipeline_gm"], paths["pipeline_gm_fit_scat"], pipeline_gm, \
             unsharded["pipeline_gm"] = phase_pipeline_gm(pipe_arch, scat_arch)
+        lap("pipeline_gm")
         mesh_paths, mesh = phase_mesh(pipe_arch, scat_arch, unsharded)
         paths.update(mesh_paths)
+        lap("mesh")
         paths["zap"], zap_rec = phase_zap()
+        lap("zap")
         t0 = time.perf_counter()
         nb_files, nb_dDMs, tmpl, injected = write_archives(rng, nsub=4,
                                                            tag="nb")
@@ -2237,21 +2581,28 @@ def main():
             f"{time.perf_counter() - t0:.2f} s")
         paths["narrowband"], narrowband = phase_narrowband(nb_files, tmpl,
                                                            injected)
+        lap("narrowband")
         sc_files, sc_tmpl, paths["narrowband_fit_scat"], narrowband_scat = \
             phase_narrowband_scat(rng)
+        lap("narrowband_fit_scat")
         paths["psrchive"], psrchive = phase_psrchive(sc_files, sc_tmpl)
+        lap("psrchive")
         paths["pipeline_gmodel"] = phase_pipeline_gmodel(nb_files, nb_dDMs)
+        lap("pipeline_gmodel")
         tb_paths, template_build = phase_template_build()
+        lap("template_build")
         paths.update(tb_paths)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    # every path runs at 2048 bins (pipeline_1536 and pipeline_8192 at
-    # theirs): its setup launches are the FFT route's
+    # every path's setup launches are all on the route setup_route names
+    # for its width (2048 bins unless the path says otherwise)
+    from pulseportraiture_tpu_torch.ops import setup_dft as sdft
     for path, c in paths.items():
-        if c["fused_setup_routes"]["fft"] != c["fused_setup"]:
+        route = sdft.setup_route(c["nbin"])
+        if c["fused_setup_routes"][route] != c["fused_setup"]:
             raise AssertionError(f"{path}: fused_setup launched "
-                                 f"{c['fused_setup']} times, the FFT route "
-                                 f"{c['fused_setup_routes']}")
+                                 f"{c['fused_setup']} times, the {route} "
+                                 f"route {c['fused_setup_routes']}")
 
     def entry(name, source, replaces, also, rec, extra):
         by_path = {p: c[name] for p, c in paths.items()}
@@ -2274,12 +2625,7 @@ def main():
                    routes_by_path={p: c["fused_setup_routes"]
                                    for p, c in paths.items()},
                    mixed_radix=xrec, pow2_widths=prec,
-                   second_route=dict(
-                       route="cuda",
-                       source="pulseportraiture_tpu_torch/csrc/setup.cu",
-                       taken_when="nbin is none of 64, 128, 8192 and 256 q, "
-                                  "q = 1..16",
-                       **grec))),
+                   second_route=epilogue_entry(paths, nrec))),
         entry("phase_moments", "pulseportraiture_tpu_torch/csrc/moments.cu",
               tpu + "pallas_moments.py:323",
               [tpu + "pallas_moments.py:262", tpu + "pallas_moments.py:186"],
@@ -2297,13 +2643,16 @@ def main():
               "scripts/tpu_moments_layout.py:138", [], mrec["subint"],
               {"probe": mrec["probe"]})],
         "fits": fits, "fits_1536": fits_1536, "fits_8192": fits_8192,
-        "fits_64": fits_64, "pow2_widths": prec,
-        "pipeline_8192": pipeline_8192, "scattering_fits": scat_fits,
+        "fits_64": fits_64, "fits_16384": fits_16384,
+        "fits_4608": fits_4608, "pow2_widths": prec,
+        "no_plan_widths": nrec, "phase_kernels_nh8193": wrec,
+        "pipeline_8192": pipeline_8192, "pipelines_16384": pipelines_16384,
+        "scattering_fits": scat_fits,
         "gm_fits": gm_fits,
         "pipeline_gm": pipeline_gm, "zap": zap_rec,
         "narrowband": narrowband, "narrowband_fit_scat": narrowband_scat,
         "psrchive": psrchive, "template_build": template_build,
-        "mesh": mesh, "profiling": prof}
+        "mesh": mesh, "profiling": prof, "phase_walls_s": walls}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

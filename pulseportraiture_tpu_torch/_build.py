@@ -23,8 +23,8 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-_SOURCES = ("setup.cu", "setup_fft.cu", "moments.cu", "scat_moments.cu",
-            "moments_merged.cu")
+_SOURCES = ("setup_epilogue.cu", "setup_fft.cu", "moments.cu",
+            "scat_moments.cu", "moments_merged.cu")
 _HEADERS = ("phase_trig.cuh", "fft_passes.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -53,10 +53,10 @@ def _declare(lib):
     lib.pp_phase_moments.restype = i32
     lib.pp_phase_moments_merged.argtypes = [vp, vp, vp, i64, i32, vp]
     lib.pp_phase_moments_merged.restype = i32
-    lib.pp_fused_setup.argtypes = [vp, i32, vp, i32, vp, vp, vp, vp, i32,
-                                   vp, vp, vp, vp, vp, vp, i32, i32, i32,
-                                   i32, i32, vp]
-    lib.pp_fused_setup.restype = i32
+    lib.pp_setup_epilogue.argtypes = [vp, i32, vp, vp, vp, vp, i32, vp, vp,
+                                      vp, vp, vp, vp, i32, i32, i32, i32,
+                                      i32, i32, vp]
+    lib.pp_setup_epilogue.restype = i32
     lib.pp_fused_setup_fft.argtypes = [vp, i32, vp, i32, vp, vp, vp, vp, i32,
                                        vp, vp, vp, vp, vp, vp, i32, i32, i32,
                                        i32, i32, i32, vp]

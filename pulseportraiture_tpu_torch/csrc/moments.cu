@@ -13,7 +13,8 @@
 // element read once), f32 accumulation, one warp-shuffle reduction.
 //
 // Numerics: the double-single phasor of phase_trig.cuh (the steps of
-// fitters/stats.py _phase_trig; the wrapper refuses nharm > 4097).
+// fitters/stats.py _phase_trig, exact in hi*k at any k; the wrapper refuses
+// nharm above 2^24, where k stops being exact in f32).
 
 #include <cuda_runtime.h>
 

@@ -24,7 +24,7 @@
 // strides 128); otherwise lanes stride single harmonics exactly as
 // moments.cu does, and the sums come out in its order.
 //
-// Numerics: as moments.cu (the wrapper refuses nharm > 4097).
+// Numerics: as moments.cu (the wrapper refuses nharm above 2^24).
 
 #include <cstdint>
 

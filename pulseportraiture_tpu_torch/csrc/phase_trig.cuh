@@ -9,10 +9,24 @@
 //     roundf (half-away);
 //   * the double-single steps use __fmul_rn/__fadd_rn/__fsub_rn so nvcc
 //     cannot contract them into FMAs;
-//   * hi = rint(8192 p)/8192 with |p| <= 1/2, so 8192*hi is an integer of
-//     at most 12 bits plus sign and hi*k is exact in f32 while
-//     |8192 hi| * k <= 2^24, i.e. k <= 4096.  nbin 4096 gives k <= 2048
-//     (2^23): exact.  The wrappers (ops/moments.py) refuse nharm > 4097.
+//   * hi = rint(8192 p)/8192 with |p| <= 1/2, so n = 8192*hi is an integer
+//     of at most 12 bits plus sign.  hi*k is formed with k reduced mod 8192
+//     into [-4096, 4096]: k' = k - 8192 rint(k/8192), exact in f32 for
+//     |k| <= 2^24 (k/8192 and 8192 rint(.) are exact, and so is the
+//     difference).  hi*k - hi*k' = n rint(k/8192) is an integer, so the
+//     fraction of the turn is unchanged, and |n k'| <= 2^24 keeps hi*k'
+//     exact in f32 at any k.  lo*k keeps the true k.  For |k| <= 4096,
+//     k' = k: the same bits as the plain double-single split.  Chosen over
+//     a wider hi (more bits of n) because that would cut the range of k at
+//     which hi*k is exact, and over a float64 product because the moments
+//     kernels take one sincosf a harmonic and an f64 multiply on top of it
+//     costs more than three exact f32 steps.
+//   * worst angle error, from the roundings of lo*k (|lo k| <= 2^-14 k
+//     turns), of frac + lo*k and of the f32 2 pi times it: about 6e-7 rad
+//     at k <= 4096 and 1.3e-6 rad at k = 16384 (2^-23 turn, measured over
+//     a grid of phases; tests/test_torch_stats.py holds it to 2e-6 rad
+//     there).  The wrappers (ops/moments.py) refuse nharm above 2^24,
+//     where k itself stops being exact in f32.
 #pragma once
 
 namespace pp {
@@ -32,10 +46,17 @@ __device__ __forceinline__ PhaseSplit phase_split(float phi) {
   return {hi, __fsub_rn(p, hi)};
 }
 
-// sin/cos of 2 pi phi k: hi*k reduced mod 1 exactly, plus lo*k.
+// k reduced mod 8192 into [-4096, 4096] (exact; k itself for |k| <= 4096).
+__device__ __forceinline__ float harmonic_mod8192(float kf) {
+  return __fsub_rn(kf, __fmul_rn(8192.0f,
+                                 rintf(__fmul_rn(kf, 1.0f / 8192.0f))));
+}
+
+// sin/cos of 2 pi phi k: hi*k reduced mod 1 exactly (through k mod 8192),
+// plus lo*k.
 __device__ __forceinline__ void phase_trig(const PhaseSplit& ph, float kf,
                                            float* s, float* c) {
-  const float prod = __fmul_rn(ph.hi, kf);
+  const float prod = __fmul_rn(ph.hi, harmonic_mod8192(kf));
   const float frac = __fsub_rn(prod, rintf(prod));
   const float ang = __fmul_rn(kTwoPi, __fadd_rn(frac, __fmul_rn(ph.lo, kf)));
   sincosf(ang, s, c);
@@ -47,9 +68,10 @@ __device__ __forceinline__ float phase_wrap(float phi) {
 }
 
 // sin/cos of 2 pi p k for a wrapped p (phase_wrap) with the angle rounded
-// once to float32: p k (24 x 14 bits) and its reduction mod 1 are exact in
-// float64, then 2 pi times it is rounded.  The factors of the scattering
-// kernel's phasor (scat_moments.cu); twin: ops/moments._phase_trig_rn.
+// once to float32: p k (24 x 24 bits at most, any k exact in f32) and its
+// reduction mod 1 are exact in float64, then 2 pi times it is rounded.
+// The factors of the scattering kernel's phasor (scat_moments.cu); twin:
+// ops/moments._phase_trig_rn.
 // phase_trig's angle carries the float32 2 pi and two more roundings, and
 // a product of three such factors strays further from e^{2 pi i phi k}
 // than the direct phasor does.

@@ -11,9 +11,9 @@
 // writes; the transform is full either way.  It takes nbin = 64, 128,
 // 8192 and every nbin = 256 q, q = 1 .. 16: every width the TPU kernels
 // take (the band cap's NQ*128, NQ even) and the powers of two around them.
-// (csrc/setup.cu computes the same function as a DFT-as-SGEMM, 4 nbin nh
-// flops per row; it serves the nbin this kernel does not take: odd nbin,
-// 1000, 256 q for q in 17 .. 31, ...)
+// (The "rfft" route, torch.fft.rfft then csrc/setup_epilogue.cu, computes
+// the same function at the nbin this kernel does not take: odd nbin,
+// 1000, 256 q for q in 17 .. 31, above 8192, ...)
 //
 // Bound on the H100: bytes.  Once the DFT is factored the function needs
 // 2.5 nbin log2(nbin) flops per row against nbin * itemsize bytes read, so

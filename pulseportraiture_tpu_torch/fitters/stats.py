@@ -130,9 +130,14 @@ def _phase_trig(phis, k):
 
     float32 uses the double-single steps of the JAX package, in the same
     order (round is half-to-even in both): wrap phi to [-0.5, 0.5], split
-    a 13-bit hi (hi*k exact in f32 while k <= 2^12) plus a small lo,
-    reduce hi*k mod 1 exactly and add lo*k.  Naive f32 loses ~1e-5 turn
-    at k ~ 2000.  float64 uses the plain product.
+    a 13-bit hi (a multiple n/8192 of 1/8192, |n| <= 4096) plus a small
+    lo, reduce hi*k mod 1 exactly and add lo*k.  hi*k is formed with k
+    reduced mod 8192 into [-4096, 4096] (k' = k - 8192 round(k/8192), exact
+    in f32 for |k| <= 2^24): hi*k - hi*k' = n round(k/8192) is an integer,
+    so the fraction is the same, and |n k'| <= 2^24 keeps hi*k' exact at
+    any k.  For |k| <= 4096, k' = k: the JAX steps bit for bit.  Naive f32
+    loses ~1e-5 turn at k ~ 2000.  float64 uses the plain product.
+    csrc/phase_trig.cuh takes the same steps.
     """
     if phis.dtype == torch.float64:
         ang = TWO_PI * phis[..., None] * k
@@ -140,7 +145,8 @@ def _phase_trig(phis, k):
     p = phis - torch.round(phis)
     hi = torch.round(p * 8192.0) / 8192.0
     lo = p - hi
-    prod = hi[..., None] * k
+    kr = k - 8192.0 * torch.round(k * (1.0 / 8192.0))
+    prod = hi[..., None] * kr
     frac = prod - torch.round(prod)
     ang = TWO_PI * (frac + lo[..., None] * k)
     return torch.cos(ang), torch.sin(ang)

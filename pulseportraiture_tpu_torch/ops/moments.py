@@ -58,8 +58,12 @@ from pulseportraiture_tpu_torch.fitters.stats import TWO_PI, _phase_trig
 from pulseportraiture_tpu_torch.ops.launches import counted
 from pulseportraiture_tpu_torch.ops.launches import stream as _stream
 
-# hi*k stays exact in f32 while |round(8192 p)| * k <= 2^24, i.e. k <= 4096
-MAX_NHARM = 4097
+# what the kernels take: harmonic indices exact in f32 (the phasors form
+# k as a float; _phase_trig reduces it mod 8192, exact up to 2^24) and a
+# one-dimensional grid of at most 2^31 - 1 blocks
+MAX_NHARM, MAX_BLOCKS = 2 ** 24, 2 ** 31 - 1
+# rows a block of csrc/moments.cu and csrc/moments_merged.cu (one warp each)
+PHASE_ROWS_PER_BLOCK = 8
 # constant factors of the 9 scattering sums (C, S, Cp, Rf, S1, Cpp, If1,
 # Rg, S2)
 _SCAT_FACTORS = (1.0, 1.0, -TWO_PI, 1.0, 1.0, -TWO_PI * TWO_PI, -TWO_PI,
@@ -113,11 +117,11 @@ def _launch(phis, Gr, Gi):
         raise ValueError(f"phase_moments: shapes phis {tuple(phis.shape)}, "
                          f"Gr {tuple(Gr.shape)}, Gi {tuple(Gi.shape)}")
     nharm = Gr.shape[-1]
-    _check_nharm("phase_moments", nharm)
+    rows = phis.numel()
+    _check_limits("phase_moments", nharm, rows, PHASE_ROWS_PER_BLOCK)
     phis = phis.contiguous()
     if not (Gr.is_contiguous() and Gi.is_contiguous()):
         raise ValueError("phase_moments kernel: Gr/Gi must be contiguous")
-    rows = phis.numel()
     out = torch.empty((3,) + tuple(phis.shape), dtype=torch.float32,
                       device=Gr.device)
     if rows:
@@ -173,11 +177,11 @@ def _launch_merged(phis, g):
         raise ValueError(f"phase_moments_merged: shapes phis "
                          f"{tuple(phis.shape)}, g {tuple(g.shape)}")
     nharm = g.shape[-1] // 2
-    _check_nharm("phase_moments_merged", nharm)
+    rows = phis.numel()
+    _check_limits("phase_moments_merged", nharm, rows, PHASE_ROWS_PER_BLOCK)
     phis = phis.contiguous()
     if not g.is_contiguous():
         raise ValueError("phase_moments_merged kernel: g must be contiguous")
-    rows = phis.numel()
     out = torch.empty((3,) + tuple(phis.shape), dtype=torch.float32,
                       device=g.device)
     if rows:
@@ -405,10 +409,16 @@ def _check_f32(name, ts, dev):
                             f"{t.dtype}")
 
 
-def _check_nharm(name, nharm):
+def _check_limits(name, nharm, rows, rows_per_block):
+    """Raise on what the kernels cannot index: nharm outside 1..MAX_NHARM
+    (harmonic numbers exact in f32) or more than MAX_BLOCKS blocks of
+    rows_per_block rows."""
     if not 0 < nharm <= MAX_NHARM:
         raise ValueError(f"{name} kernel: nharm={nharm} outside "
-                         f"1..{MAX_NHARM} (double-single exactness bound)")
+                         f"1..{MAX_NHARM} (harmonic numbers exact in f32)")
+    if -(-rows // rows_per_block) > MAX_BLOCKS:
+        raise ValueError(f"{name} kernel: {rows} rows need more than "
+                         f"{MAX_BLOCKS} blocks of {rows_per_block}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -443,14 +453,15 @@ def _launch_scat(phis, taus, Gr, Gi, M2, geometry=None):
                          f"Gr {tuple(Gr.shape)}, Gi {tuple(Gi.shape)}, "
                          f"M2 {tuple(M2.shape)}")
     nharm = Gr.shape[-1]
-    _check_nharm("scattering_moments", nharm)
+    rows = phis.numel()
+    # a block takes at least one row at any geometry: the grid's bound
+    _check_limits("scattering_moments", nharm, rows, 1)
     phis = phis.contiguous()
     taus = taus.contiguous()
     if not (Gr.is_contiguous() and Gi.is_contiguous() and
             M2.is_contiguous()):
         raise ValueError("scattering_moments kernel: Gr/Gi/M2 must be "
                          "contiguous")
-    rows = phis.numel()
     m2_rows = M2.numel() // nharm          # row r reads M2 row r % m2_rows
     out = torch.empty((9,) + tuple(phis.shape), dtype=torch.float32,
                       device=Gr.device)

@@ -9,7 +9,7 @@ nh = mr.shape[-1] harmonics (natural order):
     gs[b, kk] = sum_c w[b, c, kk] G[b, c]    (with stacked seed weights)
 
 Two hand-written CUDA routes compute it on the card, chosen by shape
-(setup_route); both replace the Pallas TPU kernels
+(setup_route); the FFT route replaces the Pallas TPU kernels
 pulseportraiture_tpu/ops/ct_dft.py `pallas_direct_setup`
 (`_direct_kernel_factory`, the capped route) and `ct_setup`
 (`_ct_setup_kernel_factory`, the full band): with natural-order
@@ -46,14 +46,27 @@ powers of two around them; at most 2 seed columns):
   * fused_setup_fft_reference is the plain torch version of this
     algorithm (same passes, same table, same sd), for the tests.
 
-Kernel note (csrc/setup.cu, `pp_fused_setup`; every other nbin: odd,
-1000, 256 q for q in 17..31, any width whose odd factor is above 15):
-  * Bound: FP32 FMA throughput of a DFT-as-SGEMM (4 nbin nh flops per
-    channel), 150x the factored transform's arithmetic at nbin 2048.
-  * Design: a tiled FP32-FMA SGEMM against a host f64 -> f32 trig slab
-    that stays L2-resident, with the cross-spectrum, Parseval data power
-    and seed partial sums fused into the epilogue; the seed sums reduce
-    over channel tiles in a second, fixed-order pass.
+Kernel note (the "rfft" route, `_launch_rfft`; every other nbin: odd,
+1000, 256 q for q in 17..31, above 8192):
+  * At these widths the JAX package runs no Pallas kernel (its TPU setup
+    kernels take 256 q, q <= 16, only; elsewhere stats.make_setup runs
+    on a plain XLA transform).  The port transforms with torch.fft.rfft
+    (cuFFT) and launches one hand-written kernel after it,
+    csrc/setup_epilogue.cu `pp_setup_epilogue`: the cross-spectrum over
+    the prefix, the int16 scale, sd over every harmonic and the seed
+    partial sums, fused into one pass over the spectrum X.
+  * Bound on the H100: bytes.  The route reads x (cuFFT), writes and
+    reads X, writes Gr/Gi; the fused minimum (x read, Gr/Gi written) is
+    the FFT route's.
+  * Design: a block takes one item and a tile of channels (items fastest,
+    so a tile's model rows are shared through L2), groups of tpr threads
+    a row, a thread a harmonic pair read by one 128-bit load where the
+    row is 16-byte aligned; sd summed by warp shuffles into per-warp
+    slots; seed partial sums in registers over the tile, then a second,
+    fixed-order pass over the tiles (no float atomics).
+  * setup_epilogue_reference walks the kernel's steps on a spectrum;
+    fused_setup_reference (rfft + the same cross-spectrum) stays the CPU
+    path.
 
 Host helpers band_cap_model_ft / suggest_mharm keep the JAX package's
 cap rule (NH = NQ*M', M' a multiple of 8), so both packages keep the
@@ -74,7 +87,6 @@ from pulseportraiture_tpu_torch.ops.launches import counted
 from pulseportraiture_tpu_torch.ops.launches import stream as _stream
 
 _LANES = 128
-_BN = 64          # slab columns per kernel block (csrc/setup.cu BN)
 
 
 def cap_supported(nbin: int) -> bool:
@@ -166,6 +178,30 @@ def fused_setup_reference(x, mr, mi, f0_fact=False, w=None, scale=None):
     return _cross_spectrum(X, mr, mi, f0_fact, w, scale)
 
 
+def setup_epilogue_reference(X, mr, mi, f0_fact=False, w=None, scale=None,
+                             rows=None):
+    """Plain torch version of csrc/setup_epilogue.cu on a spectrum X (B,
+    nchan, nhf), in mr's dtype, by the kernel's steps: X dequantized by
+    scale, the cross-spectrum over the prefix k < nh, sd from the whole
+    spectrum, and the seed sums as partial sums over tiles of `rows`
+    channels (default: one tile) added tile by tile in order."""
+    dt = mr.dtype
+    X = X.to(torch.complex128 if dt == torch.float64 else torch.complex64)
+    Gr, Gi, sd = _cross_spectrum(X, mr, mi, f0_fact, None, scale)
+    if w is None:
+        return Gr, Gi, sd
+    B, nchan, nh = Gr.shape
+    w = w.to(dt)
+    rows = nchan if rows is None else rows
+    gsr = torch.zeros((B, w.shape[-1], nh), dtype=dt, device=Gr.device)
+    gsi = torch.zeros_like(gsr)
+    for c0 in range(0, nchan, rows):
+        tile = slice(c0, c0 + rows)
+        gsr = gsr + torch.einsum("bcs,bck->bsk", w[:, tile], Gr[:, tile])
+        gsi = gsi + torch.einsum("bcs,bck->bsk", w[:, tile], Gi[:, tile])
+    return Gr, Gi, sd, gsr, gsi
+
+
 # what csrc/setup_fft.cu takes: nbin = 64, 128, 8192 or 256 q (q = 1..16,
 # so nbin/2 = m 2^a with m odd in 1..15); one block holds rows of nbin
 # samples, their nbin/2-point work buffers and (where they fit) the
@@ -219,12 +255,38 @@ def _fft_layout(nbin: int):
 def setup_route(nbin: int) -> str:
     """Which hand-written kernel fused_setup launches on a CUDA tensor:
     "fft" (csrc/setup_fft.cu) for nbin = 64, 128, 8192 and every nbin =
-    256 q, q = 1..16 (every nbin cap_supported takes), else "gemm"
-    (csrc/setup.cu: odd nbin, 1000, 256 q for q in 17..31, ...)."""
+    256 q, q = 1..16 (every nbin cap_supported takes), else "rfft"
+    (torch.fft.rfft, then csrc/setup_epilogue.cu: odd nbin, 1000, 256 q for
+    q in 17..31, every nbin above 8192)."""
     if nbin in (64, 128, FFT_MAX_NBIN) or (nbin % 256 == 0 and
                                           256 <= nbin <= 4096):
         return "fft"
-    return "gemm"
+    return "rfft"
+
+
+# what csrc/setup_epilogue.cu takes: at most 2 seed columns, tiles of at
+# most 64 channels, 256 threads a block in groups of 32..256 a row
+EPI_MAX_SEEDS, EPI_MAX_ROWS, EPI_THREADS = 2, 64, 256
+
+
+def _epilogue_tpr(nhf: int) -> int:
+    """Threads a row of csrc/setup_epilogue.cu for a spectrum of nhf
+    harmonics: the power of two in 32..256 that covers its (nhf + 1) // 2
+    harmonic pairs in one chunk where it can."""
+    tpr = 32
+    while tpr < EPI_THREADS and tpr < (nhf + 1) // 2:
+        tpr *= 2
+    return tpr
+
+
+def _epilogue_rows(B: int, nchan: int, nsm: int) -> int:
+    """Channels a tile of csrc/setup_epilogue.cu: the largest power of two
+    in 8..64 that still gives three blocks an SM (a block is 256
+    threads; a larger tile writes fewer seed partial sums)."""
+    rows = EPI_MAX_ROWS
+    while rows > 8 and B * -(-nchan // rows) < 3 * nsm:
+        rows //= 2
+    return rows
 
 
 @functools.lru_cache(maxsize=8)
@@ -386,11 +448,12 @@ def fused_setup(x, mr, mi, f0_fact=False, w=None, scale=None):
 
     scale: (B, nchan) dequantization for int16 x (requires f0_fact
     falsy: per-channel offsets only feed the dropped DC harmonic).
-    w: stacked seed weights (B, nchan, K); gsr/gsi are (B, K, nh).  The
-    FFT kernel takes K <= FFT_MAX_SEEDS and raises above.
+    w: stacked seed weights (B, nchan, K); gsr/gsi are (B, K, nh).  Both
+    routes take K <= 2 (FFT_MAX_SEEDS, EPI_MAX_SEEDS) and raise above.
     CPU tensors take the plain twin; CUDA tensors launch the kernel that
-    setup_route names for their shape (or raise).  fused_setup.launches
-    counts the launches, fused_setup.routes each route's.
+    setup_route names for their shape (or raise): no fallback between
+    the routes or to the twin.  fused_setup.launches counts the
+    launches, fused_setup.routes each route's.
     """
     if scale is not None and f0_fact:
         raise ValueError("int16 ingest drops per-channel offsets into the "
@@ -402,30 +465,11 @@ def fused_setup(x, mr, mi, f0_fact=False, w=None, scale=None):
     _check(x, mr, mi, w, scale)
     if setup_route(x.shape[-1]) == "fft":
         return _launch_fft(x, mr, mi, bool(f0_fact), w, scale)
-    return _launch_gemm(x, mr, mi, bool(f0_fact), w, scale)
+    return _launch_rfft(x, mr, mi, bool(f0_fact), w, scale)
 
 
 fused_setup.launches = 0
-fused_setup.routes = {"fft": 0, "gemm": 0}
-
-
-@functools.lru_cache(maxsize=8)
-def _trig_slab_np(nbin: int, nh: int):
-    """(nbin, ncolp) f32 slab, columns 2k = cos(2 pi j k/nbin) and
-    2k+1 = sin(...) for k < nh, zero-padded to a multiple of 64 columns.
-    Built in f64 with j*k reduced mod nbin exactly, then cast."""
-    ncolp = -(-2 * nh // _BN) * _BN
-    j = np.arange(nbin, dtype=np.int64)[:, None]
-    k = np.arange(nh, dtype=np.int64)[None, :]
-    ang = 2.0 * np.pi * ((j * k) % nbin).astype(np.float64) / nbin
-    E = np.zeros((nbin, ncolp), np.float64)
-    E[:, 0:2 * nh:2] = np.cos(ang)
-    E[:, 1:2 * nh:2] = np.sin(ang)
-    return E.astype(np.float32)
-
-
-def _trig_slab(nbin: int, nh: int, device):
-    return _on_device(_trig_slab_np, (nbin, nh), device)
+fused_setup.routes = {"fft": 0, "rfft": 0}
 
 
 def _check(x, mr, mi, w, scale):
@@ -493,32 +537,52 @@ def _launched(err, lib, entry, route):
     counted(fused_setup, route)
 
 
-def _launch_gemm(x, mr, mi, f0_fact, w, scale):
-    """csrc/setup.cu on checked arguments (_check)."""
+def _launch_rfft(x, mr, mi, f0_fact, w, scale):
+    """The "rfft" route on checked arguments (_check): torch.fft.rfft of
+    the rows (int16 cast to float32 first; scale dequantizes after the
+    transform), then csrc/setup_epilogue.cu."""
+    X = torch.fft.rfft(x.float(), dim=-1)
+    out = _launch_epilogue(X, mr, mi, f0_fact, w, scale)
+    if x.shape[0] * x.shape[1]:
+        counted(fused_setup, "rfft")
+    return out
+
+
+def _launch_epilogue(X, mr, mi, f0_fact, w, scale):
+    """csrc/setup_epilogue.cu on a contiguous complex64 spectrum X and
+    checked arguments (_check), _epilogue_rows channels a tile."""
     from pulseportraiture_tpu_torch._build import load_kernels
 
-    B, nchan, nbin = x.shape
+    B, nchan, nhf = X.shape
     nh = mr.shape[-1]
     kseed = 0 if w is None else w.shape[-1]
-    slab = _trig_slab(nbin, nh, x.device)
-    ncolp = slab.shape[1]
-    out = _outputs(x, nh, kseed)
+    if kseed > EPI_MAX_SEEDS:
+        raise ValueError(f"the setup epilogue takes at most {EPI_MAX_SEEDS} "
+                         f"seed columns, got {kseed}")
+    rows = _epilogue_rows(B, nchan, torch.cuda.get_device_properties(
+        X.device).multi_processor_count)
+    ntile = -(-nchan // rows)
+    if ntile > 65535 or (kseed and B > 65535):
+        raise ValueError(f"setup epilogue: {ntile} tiles of {rows} channels"
+                         f" or B={B} items outside the grid")
+    out = _outputs(X, nh, kseed)
     part = None
     if kseed:
-        part = torch.empty((B, -(-nchan // 64), kseed, ncolp),
-                           dtype=torch.float32, device=x.device)
+        part = torch.empty((B, ntile, kseed, 2, nh), dtype=torch.float32,
+                           device=X.device)
     if B * nchan:
         lib = load_kernels()
-        with torch.cuda.device(x.device):
-            err = lib.pp_fused_setup(
-                _ptr(x), ctypes.c_int(int(x.dtype == torch.int16)),
-                _ptr(slab), ctypes.c_int(ncolp), _ptr(mr), _ptr(mi),
-                _ptr(scale), _ptr(w), ctypes.c_int(kseed),
-                *map(_ptr, out[:3]), _ptr(part),
+        with torch.cuda.device(X.device):
+            err = lib.pp_setup_epilogue(
+                _ptr(X), ctypes.c_int(nhf), _ptr(mr), _ptr(mi), _ptr(scale),
+                _ptr(w), ctypes.c_int(kseed), *map(_ptr, out[:3]), _ptr(part),
                 *map(_ptr, out[3:] or (None, None)), ctypes.c_int(B),
-                ctypes.c_int(nchan), ctypes.c_int(nbin), ctypes.c_int(nh),
-                ctypes.c_int(int(f0_fact)), _stream(x.device))
-        _launched(err, lib, "pp_fused_setup", "gemm")
+                ctypes.c_int(nchan), ctypes.c_int(nh),
+                ctypes.c_int(int(f0_fact)), ctypes.c_int(rows),
+                ctypes.c_int(_epilogue_tpr(nhf)), _stream(X.device))
+        if err != 0:
+            raise RuntimeError(f"pp_setup_epilogue launch failed: CUDA error "
+                               f"{err} ({lib.pp_error_string(err).decode()})")
     return tuple(out)
 
 

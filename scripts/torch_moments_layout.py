@@ -2,7 +2,7 @@
 """On the card: the phase-moments kernel on split Gr/Gi streams against
 the merged single-stream layout g = [Gr | Gi], against copy ceilings.
 
-    python scripts/torch_moments_layout.py [--out layout.json]
+    python scripts/torch_moments_layout.py [--root DIR] [--out layout.json]
 
 The counterpart of scripts/tpu_moments_layout.py for the port.  At the
 probe's shape (B=16 items x 4096 channels, 2048 bins) and at nh=1024 (the
@@ -18,8 +18,11 @@ CUDA events:
   * GB/s of each over the 8 bytes per harmonic both layouts read, and the
     largest difference between the two kernels' outputs relative to the
     largest output.
-Prints the card's name and power limit.  Needs a card: it stops without
-one.  Storage formats are not changed here: the fits keep Gr and Gi
+Prints the card's name and power limit.  --root DIR times the package
+of another checkout (a parent commit unpacked with git archive), its
+kernels built from its own sources: run parent, tree, tree, parent in
+one call to compare two versions on one card.  Needs a card: it stops
+without one.  Storage formats are not changed here: the fits keep Gr and Gi
 apart, the narrowband fitters build the merged stream themselves.
 """
 
@@ -29,8 +32,7 @@ import os
 import subprocess
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 NCHAN, B = 4096, 16
 
@@ -52,8 +54,11 @@ def cuda_ms(fn, reps=20, warm=3):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=HERE,
+                    help="checkout whose package is timed")
     ap.add_argument("--out", default=None, help="write the numbers as JSON")
     args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
     import torch
     if not torch.cuda.is_available():
         print("torch_moments_layout: torch.cuda.is_available() is False")
@@ -66,8 +71,9 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    print(f"package: {mom.__file__}", flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
-    out = {"card": card, "shapes": []}
+    out = {"card": card, "root": args.root, "shapes": []}
     for nh in (1024, 128):
         f32 = dict(dtype=torch.float32, device=dev, generator=gen)
         g = torch.randn((B, NCHAN, 2 * nh), **f32)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the device time of one warm batched fit goes, on one NVIDIA card.
 
-    python3 scripts/torch_profile_fit.py [--nbin N] [--out profile.json]
+    python3 scripts/torch_profile_fit.py [--nbin N [--batch B]]
+        [--out profile.json]
 
 Profiles (torch.profiler, CPU + CUDA activities) one warm batch of the
 port's fit_portrait_full_batch at 4096 channels x 2048 bins, float32,
@@ -22,12 +23,13 @@ channels as 4096 rows):
 The data recipes are chip_smoke.py's own (phidm_recipe, gm_recipe,
 scat_recipe).  --nbin N profiles only the (phi, DM) fit, at 4096
 channels x N bins (both templates where the band cap applies, else the
-full band).
+full band), B items (--batch, default 64).
 Prints, per case: the batch's unprofiled wall ms (host clock to a
 synchronize, median of 3) and its profiled wall ms (the profiler slows
 the host), device busy ms (the union of kernel intervals), the setup
-kernels' (either route, with their seed reduction), the moments kernel's
-and all other kernels' ms, the kernel
+kernels' (either route's hand kernels, with their seed reduction), the
+library FFT kernels' (cuFFT: the rfft route's transform, and any other
+FFT), the moments kernel's and all other kernels' ms, the kernel
 launch count, and the idle share 1 - busy/wall against each wall
 (idle_share: the unprofiled wall; idle_share_profiled).  Needs a card.
 """
@@ -84,18 +86,21 @@ def profile(run):
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     iv = [(e.time_range.start, e.time_range.end) for e in kernels]
-    by = {"setup": 0.0, "moments": 0.0, "other": 0.0}
+    by = {"setup": 0.0, "fft": 0.0, "moments": 0.0, "other": 0.0}
     for e in kernels:
         dt = (e.time_range.end - e.time_range.start) / 1e3
         if "setup_" in e.name or "seed_reduce" in e.name:
             by["setup"] += dt
+        elif "fft" in e.name.lower():
+            by["fft"] += dt
         elif "moments" in e.name and "kernel" in e.name:
             by["moments"] += dt
         else:
             by["other"] += dt
     busy = union_ms(iv)
     return dict(wall_ms=wall_plain, wall_profiled_ms=wall, busy_ms=busy,
-                setup_ms=by["setup"], moments_ms=by["moments"],
+                setup_ms=by["setup"], fft_ms=by["fft"],
+                moments_ms=by["moments"],
                 other_ms=by["other"], kernels=len(kernels),
                 idle_share=1.0 - busy / wall_plain,
                 idle_share_profiled=1.0 - busy / wall)
@@ -105,6 +110,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--nbin", type=int, default=None,
                     help="only the (phi, DM) fit, at this width")
+    ap.add_argument("--batch", type=int, default=64,
+                    help="items of the --nbin (phi, DM) batch")
     ap.add_argument("--out", default=None, help="also write JSON here")
     args = ap.parse_args()
     import numpy as np
@@ -129,8 +136,8 @@ def main():
                                      dtype=torch.float32, device=dev)
                      for a in mft)
 
-    # (phi, DM), B=64: bench.py's recipe
-    B = 64
+    # (phi, DM), B=64 (--batch with --nbin): bench.py's recipe
+    B = args.batch if args.nbin else 64
     nbin = args.nbin or cs.NBIN
     at = "" if nbin == cs.NBIN else f"/nbin{nbin}"
     data, freqs, model, _, _, _ = cs.phidm_recipe(dev, B, nbin=nbin)

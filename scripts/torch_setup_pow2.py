@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""The fit setup at every power-of-two width 64..8192 on one NVIDIA card,
-timed beside its yardsticks.
+"""The fit setup at every power-of-two width 64..8192 (or the widths
+named) on one NVIDIA card, timed beside its yardsticks.
 
     python3 scripts/torch_setup_pow2.py [--root DIR] [--warp-worker]
-        [--nbin N ...] [--out FILE]
+        [--nbin N ...] [--batch B] [--out FILE]
 
 At 4096 channels x nbin bins (chip_smoke.setup_inputs' data; B=64 up to
-512 bins, so that a time is not one launch's latency, and B=4 above; two
-seed columns), float32 rows and int16 rows + scale, full band and capped
-where the band cap applies: fused_setup on the route the package's
-setup_route names, the SGEMM kernel csrc/setup.cu on the same inputs
-(when that is not already the route), torch.fft.rfft + cross-spectrum,
-the cuBLAS float32 DFT-as-GEMM and the bound (chip_smoke.setup_bound).
-CUDA events, chip_smoke.cuda_ms.  No correctness checks: chip_smoke.py's
-setup_pow2 phase holds the kernel against its twin at these shapes.
+512 bins, so that a time is not one launch's latency, and B=4 above,
+unless --batch names B; two seed columns), float32 rows and int16 rows
++ scale, full band and capped where the band cap applies: fused_setup on
+the route the package's setup_route names, torch.fft.rfft +
+cross-spectrum, the cuBLAS float32 DFT-as-GEMM and the bound
+(chip_smoke.setup_bound; on the "rfft" route also the epilogue kernel
+alone and the route's own bound, chip_smoke.setup_bound's "route").  CUDA
+events, chip_smoke.cuda_ms.  No correctness checks: chip_smoke.py's
+setup phases hold the kernels against their twins at these shapes.
 
 --root DIR times the package of another checkout (a parent commit
-unpacked with git archive), its kernels built from its own sources.
+unpacked with git archive), its kernels built from its own sources: a
+parent whose setup_route sends a width to its DFT-as-SGEMM kernel
+(csrc/setup.cu, route "gemm") times that kernel there.
 --warp-worker times a copy of the root's package whose
 csrc/setup_fft.cu gives every plan a worker of at least a warp (the
 alternative to the packed worker of 64..512 bins), built under
@@ -58,14 +61,14 @@ def warp_worker_copy(root):
     return dst
 
 
-def sweep(cs, dev, nbins):
+def sweep(cs, dev, nbins, batch=None):
     import torch
 
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
 
     out = {}
     for nbin in nbins:
-        B = 64 if nbin <= 512 else 4
+        B = batch or (64 if nbin <= 512 else 4)
         x, raw, scl, wt, routes = cs.setup_inputs(dev, nbin, B)
         route = sdft.setup_route(nbin)
         for tname, (mr, mi) in routes.items():
@@ -75,10 +78,15 @@ def sweep(cs, dev, nbins):
                 rec = dict(nbin=nbin, B=B, nh=nh, route=route)
                 rec["ms"] = cs.cuda_ms(lambda: sdft.fused_setup(
                     xx, mr, mi, w=wt, scale=sc))
-                if route != "gemm":
-                    rec["setup_cu_ms"] = cs.cuda_ms(
-                        lambda: sdft._launch_gemm(xx, mr, mi, False, wt, sc),
-                        reps=5)
+                if route == "rfft":
+                    X = torch.fft.rfft(xx.float(), dim=-1)
+                    rec["epilogue_ms"] = cs.cuda_ms(
+                        lambda: sdft._launch_epilogue(X, mr, mi, False, wt,
+                                                      sc))
+                    del X
+                    rec["route_bound_ms"], _ = cs.setup_bound(
+                        B, nbin, nh, 2, xx.element_size(), sc is not None,
+                        "route")
                 rec["rfft_ms"] = cs.cuda_ms(
                     lambda: cs.rfft_cross_spectrum(xx, mr, mi, sc))
                 rec["gemm_ms"] = cs.cuda_ms(
@@ -101,6 +109,8 @@ def main():
     ap.add_argument("--warp-worker", action="store_true",
                     help="time the root's package with warp-sized workers")
     ap.add_argument("--nbin", type=int, nargs="*", default=NBINS)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="items a call at every width")
     ap.add_argument("--out", default=None, help="also write JSON here")
     args = ap.parse_args()
     import torch
@@ -129,7 +139,7 @@ def main():
         if "setup_fft" in line or "registers" in line or "spill" in line:
             print("ptxas: " + line.strip(), flush=True)
     res = {"card": card, "root": args.root, "warp_worker": args.warp_worker,
-           "sweep": sweep(cs, dev, args.nbin)}
+           "sweep": sweep(cs, dev, args.nbin, args.batch)}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -14,8 +14,7 @@ over the tile size (channels per block), beside the other routes.
    rows per block over the powers of two from 4 to 16 times the rows a
    block transforms at once (at least 64) and the wrapper's own choice
    (_fft_rows); CUDA events, mean of 20 launches after 3 warm-ups.
-   Beside them, in the same call: the SGEMM route (csrc/setup.cu), the
-   rfft twin and the byte bound.
+   Beside them, in the same call: the rfft twin and the byte bound.
 Needs a card.  (tests/test_torch_kernels.py holds the kernel against its
 float64 twin at small and ragged shapes.)
 """
@@ -73,8 +72,6 @@ def sweep(dev, nbin):
         rec["fft_default_ms"] = cs.cuda_ms(
             lambda: sdft._launch_fft(x, mr, mi, False, ww, sc), reps=20,
             warm=3)
-        rec["gemm_ms"] = cs.cuda_ms(
-            lambda: sdft._launch_gemm(x, mr, mi, False, ww, sc), reps=5)
         rec["rfft_twin_ms"] = cs.cuda_ms(
             lambda: sdft.fused_setup_reference(x, mr, mi, False, ww, sc),
             reps=10)

@@ -222,6 +222,66 @@ def test_fft_reference_matches_jax_make_setup(nbin, nchan, i16, f0_fact):
             1e-12 * np.abs(sd).max()
 
 
+@pytest.mark.parametrize("nbin,nchan,capped,i16,K,f0_fact", [
+    (255, 5, False, False, 2, False),
+    (255, 9, True, False, 0, True),
+    (1000, 7, True, False, 2, False),
+    (1000, 5, False, True, 1, False),
+    (4352, 4, False, True, 2, False),
+    (4352, 6, True, False, 0, True),
+    (16384, 3, False, False, 2, False),
+    (16384, 4, True, True, 2, False),
+    (16384, 3, False, False, 0, True),
+])
+def test_epilogue_reference_matches_jax_make_setup(nbin, nchan, capped, i16,
+                                                   K, f0_fact):
+    """The rfft route's widths (odd, 8 x 125, 256 x 17, above 8192), where
+    the JAX package sets up with stats.make_setup (rfft and the
+    cross-spectrum in XLA): setup_epilogue_reference on torch.fft.rfft of
+    the rows, in float64 both sides, against it within 1e-12 of the
+    largest magnitude of Gr/Gi (the prefix nbin/8 where capped), of the
+    per-channel data power (every harmonic: no Nyquist term at odd nbin)
+    and of the seed sums formed from the JAX package's cross-spectrum.
+    int16 rows: scale after the transform here, the rows dequantized
+    first on the JAX side.  Tiles of 2 channels: the seed sums added
+    tile by tile."""
+    from pulseportraiture_tpu.fitters import stats as jstats
+
+    x, mr, mi, w, scale = _inputs(nbin, nchan, capped, i16, K, f0_fact)
+    nh = mr.shape[-1]
+    X = torch.fft.rfft(x.double(), dim=-1)
+    got = sdft.setup_epilogue_reference(X, mr, mi, f0_fact, w, scale,
+                                        rows=2)
+    assert len(got) == (5 if K else 3)
+    xd = x.double() if scale is None else x.double() * scale[..., None]
+    errs = np.full(nchan, (nbin / 2.0) ** -0.5)   # Fourier noise 1: w = 1
+    freqs = np.linspace(1100.0, 1900.0, nchan)
+    mf = np.fft.rfft(template(nchan, nbin), axis=-1)
+    mfull = (mf.real.astype(np.float32).astype(np.float64),
+             mf.imag.astype(np.float32).astype(np.float64))
+    mfull[0][:, :nh], mfull[1][:, :nh] = mr.numpy(), mi.numpy()
+    for b in range(x.shape[0]):
+        want = jstats.make_setup(xd[b].numpy(), None, errs, 1.0, freqs,
+                                 1500.0, 1500.0, 1500.0, f0_fact=f0_fact,
+                                 model_ft_ri=mfull)
+        gr, gi, sd = (np.asarray(a) for a in (want.Gr, want.Gi,
+                                              want.sd_chan))
+        assert gr.shape == (nchan, nbin // 2 + 1)
+        gr, gi = gr[:, :nh], gi[:, :nh]
+        gmax = max(np.abs(gr).max(), np.abs(gi).max())
+        assert got[0][b].shape == gr.shape
+        assert np.abs(got[0][b].numpy() - gr).max() <= 1e-12 * gmax
+        assert np.abs(got[1][b].numpy() - gi).max() <= 1e-12 * gmax
+        assert np.abs(got[2][b].numpy() - sd).max() <= \
+            1e-12 * np.abs(sd).max()
+        if K:
+            wb = w[b].numpy()
+            gsr, gsi = wb.T @ gr, wb.T @ gi
+            smax = max(np.abs(gsr).max(), np.abs(gsi).max())
+            assert np.abs(got[3][b].numpy() - gsr).max() <= 1e-12 * smax
+            assert np.abs(got[4][b].numpy() - gsi).max() <= 1e-12 * smax
+
+
 @pytest.mark.parametrize("nbin,i16", [(512, False), (2048, False),
                                       (2048, True), (1280, False),
                                       (1280, True), (64, False), (64, True),
@@ -282,10 +342,10 @@ def test_twiddle_table(nbin):
 
 @pytest.mark.parametrize("nbin,want", [
     (128, "fft"), (256, "fft"), (512, "fft"), (1024, "fft"), (2048, "fft"),
-    (4096, "fft"), (64, "fft"), (8192, "fft"), (255, "gemm"),
-    (768, "fft"), (1280, "fft"), (0, "gemm"), (1536, "fft"),
-    (3840, "fft"), (1000, "gemm"), (384, "gemm"), (4352, "gemm"),
-    (4608, "gemm"), (16384, "gemm"),
+    (4096, "fft"), (64, "fft"), (8192, "fft"), (255, "rfft"),
+    (768, "fft"), (1280, "fft"), (0, "rfft"), (1536, "fft"),
+    (3840, "fft"), (1000, "rfft"), (384, "rfft"), (4352, "rfft"),
+    (4608, "rfft"), (16384, "rfft"),
 ])
 def test_setup_route(nbin, want):
     assert sdft.setup_route(nbin) == want
@@ -362,6 +422,6 @@ def test_cpu_tensors_take_the_twin_and_count_nothing():
     want = sdft.fused_setup_reference(x, mr, mi, w=w)
     assert all(torch.equal(g, r) for g, r in zip(got, want))
     assert (sdft.fused_setup.launches, sdft.fused_setup.routes) == before
-    assert set(sdft.fused_setup.routes) == {"fft", "gemm"}
+    assert set(sdft.fused_setup.routes) == {"fft", "rfft"}
     with pytest.raises(ValueError):      # the FFT version states its range
         sdft.fused_setup_fft_reference(x[..., :255], mr, mi)

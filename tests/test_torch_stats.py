@@ -79,6 +79,67 @@ def test_phase_trig_float32_is_double_single():
     assert np.abs(naive - np.cos(ang)).max() > 1e-4
 
 
+def _trig_phases():
+    """Phases over [-2, 2] turns, and phases beside every multiple of
+    1/8192 (where the 13-bit hi of the split rounds either way)."""
+    rng = np.random.default_rng(5)
+    grid = np.arange(-4096, 4097, 7) / 8192.0
+    return np.concatenate([rng.uniform(-2.0, 2.0, 97),
+                           grid + rng.uniform(-6e-5, 6e-5, grid.size)]
+                          ).astype(np.float32)
+
+
+def test_phase_trig_float32_angles_are_the_jax_steps(monkeypatch):
+    """At k <= 4096 the port's float32 phase (k reduced mod 8192 is k
+    itself there) is the JAX package's double-single angle bit for bit:
+    cos and sin replaced by the identity on both sides, the angles are
+    equal, and so are the port's phasors before and after the reduction
+    (the libms' cos/sin differ in the last bit, so the phasors are held
+    to the angle)."""
+    phis = _trig_phases()
+    k = np.arange(4097, dtype=np.float32)
+    ident = (lambda a: a)
+    with monkeypatch.context() as m:
+        m.setattr(jnp, "cos", ident)
+        m.setattr(jnp, "sin", ident)
+        m.setattr(torch, "cos", ident)
+        m.setattr(torch, "sin", ident)
+        got, _ = stats._phase_trig(torch.from_numpy(phis),
+                                   torch.from_numpy(k))
+        want, _ = jstats._phase_trig(jnp.asarray(phis), jnp.asarray(k))
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    # the split without the reduction, step for step
+    p = torch.from_numpy(phis)
+    p = p - torch.round(p)
+    hi = torch.round(p * 8192.0) / 8192.0
+    prod = hi[..., None] * torch.from_numpy(k)
+    ang = stats.TWO_PI * ((prod - torch.round(prod)) +
+                          (p - hi)[..., None] * torch.from_numpy(k))
+    c, s = stats._phase_trig(torch.from_numpy(phis), torch.from_numpy(k))
+    assert torch.equal(c, torch.cos(ang)) and torch.equal(s, torch.sin(ang))
+
+
+@pytest.mark.parametrize("k0,bound", [(0, 1e-6), (4096, 1e-6),
+                                      (8192 - 64, 1.5e-6),
+                                      (12288 - 32, 2e-6),
+                                      (16384 - 128, 2e-6)])
+def test_phase_trig_float32_any_harmonic(k0, bound):
+    """Above k = 4096, where the JAX package's f32 hi*k stops being exact
+    (an error up to 1/8192 turn), the port reduces k mod 8192 first: the
+    float32 phasor stays within `bound` rad of the float64 one through
+    k = 16384 (2e-6 rad: the roundings of lo*k, of frac + lo*k and of the
+    f32 2 pi times it, 2^-23 turn at k = 16384, plus sincosf's)."""
+    phis = _trig_phases()
+    k = np.arange(k0, k0 + 129, dtype=np.float32)
+    c, s = stats._phase_trig(torch.from_numpy(phis), torch.from_numpy(k))
+    ang = 2.0 * np.pi * np.mod(phis.astype(np.float64)[:, None] *
+                               k.astype(np.float64), 1.0)
+    z = (c.double().numpy() + 1j * s.double().numpy()) * np.exp(-1j * ang)
+    assert np.abs(np.angle(z)).max() <= bound
+    assert np.abs(np.abs(z) - 1.0).max() <= 3e-7
+
+
 def _jax_setup(d, item=0):
     return jstats.make_setup(
         jnp.asarray(d["data"][item]), jnp.asarray(d["model"]),
