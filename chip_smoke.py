@@ -27,8 +27,9 @@ parallel), then:
      1000, 4352, 4608, 6144, 7680 and 16384 bins, B=4, full band (and the
      prefix nh=125 at 1000), float32 and int16 + scale (setup_no_plan): the
      same checks, the epilogue alone against setup_epilogue_reference on
-     the same spectrum, timed beside rfft alone, the same library calls,
-     the fused bound and the route's two-kernel bound;
+     the same spectrum (the same bits from a second call), timed beside
+     rfft alone, the same library calls, the fused bound, the route's
+     two-kernel bound and the epilogue's own bound (its share printed);
   3. the scattering-moments kernel against its float64 twin at B=32,
      nh=128 and 1025, phases in [-3, 3] turns, taus around
      8e-3 (nu/1500)^-4 rot over two decades: each of the 9 sums within
@@ -138,8 +139,8 @@ parallel), then:
      card visible also make_mesh() over the cards (one card: a line says
      the multi-card run did not happen).
 ptxas's registers and spills are printed for every kernel; a spill in the
-setup FFT or the scattering kernel fails the run.  Launch counts are
-reset before each pipeline run (the main paths) and
+setup FFT, the setup epilogue or the scattering kernel fails the run.
+Launch counts are reset before each pipeline run (the main paths) and
 read after it; every kernel of that path must have launched there, and
 every setup launch of a path must have taken the route setup_route
 names: the FFT route at 2048, 1536 and 8192 bins, the rfft route at
@@ -484,18 +485,24 @@ def setup_case(tag, xx, mr_t, mi_t, wt, sc, nbin):
     if route == "rfft":
         X = torch.fft.rfft(xx.float(), dim=-1)
         epi = sdft._launch_epilogue(X, mr_t, mi_t, False, wt, sc)
+        again = sdft._launch_epilogue(X, mr_t, mi_t, False, wt, sc)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(epi, again)):
+            raise AssertionError(f"setup[{tag}]: a second epilogue call gave "
+                                 "other bits")
+        del again
+        geo = sdft.epilogue_geometry(B, NCHAN, X.shape[-1], nh, 2,
+                                     xx.device)
         twin = sdft.setup_epilogue_reference(
             X, mr_t.double(), mi_t.double(), w=wt.double(),
-            scale=None if sc is None else sc.double(),
-            rows=sdft._epilogue_rows(B, NCHAN, torch.cuda.
-                                     get_device_properties(xx.device).
-                                     multi_processor_count))
+            scale=None if sc is None else sc.double(), rows=geo.rows)
         e_epi = [float((g.double() - r).abs().max()) / float(r.abs().max())
                  for g, r in zip(epi, twin)]
         del epi, twin
         if max(e_epi) > 4e-6:
             raise AssertionError(f"setup[{tag}] epilogue disagrees with "
                                  f"setup_epilogue_reference: {e_epi}")
+        rec["epilogue_geometry"] = geo._asdict()
         rec["epilogue_ms"] = cuda_ms(lambda: sdft._launch_epilogue(
             X, mr_t, mi_t, False, wt, sc))
         rec["epilogue_rel_err"] = max(e_epi)
@@ -506,10 +513,12 @@ def setup_case(tag, xx, mr_t, mi_t, wt, sc, nbin):
             B, nbin, nh, 2, xx.element_size(), sc is not None, "route")
         rec["epilogue_bound_ms"], _ = setup_bound(
             B, nbin, nh, 2, 4, sc is not None, "epilogue")
+        rec["epilogue_share"] = rec["epilogue_bound_ms"] / rec["epilogue_ms"]
         extra = (f"; epilogue alone {rec['epilogue_ms']:.4f} ms (rel err "
                  f"{max(e_epi):.2e}; bound {rec['epilogue_bound_ms']:.4f} "
-                 f"ms), rfft alone {rec['rfft_alone_ms']:.4f} ms, route "
-                 f"bound {rec['route_bound_ms']:.4f} ms")
+                 f"ms, share of its bound {rec['epilogue_share']:.1%}), "
+                 f"rfft alone {rec['rfft_alone_ms']:.4f} ms, route bound "
+                 f"{rec['route_bound_ms']:.4f} ms")
     log(f"setup[{tag}] kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
         f"calls: float32 GEMM {lib:.4f} ms, rfft + cross-spectrum "
         f"{lib_fft:.4f} ms; bound {bnd:.4f} ms ({by}) (B={B}){extra}")
@@ -2493,6 +2502,7 @@ def main():
         if "registers" in line or "spill" in line:
             log("ptxas: " + line.strip())
         if "spill" in line and ("setup_fft_kernel" in entry or
+                                "setup_epilogue_kernel" in entry or
                                 "scat_moments_kernel" in entry) and \
                 "0 bytes spill stores, 0 bytes spill loads" not in line:
             raise AssertionError(f"a kernel spills: {entry.strip()}: "

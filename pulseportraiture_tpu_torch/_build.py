@@ -54,9 +54,11 @@ def _declare(lib):
     lib.pp_phase_moments_merged.argtypes = [vp, vp, vp, i64, i32, vp]
     lib.pp_phase_moments_merged.restype = i32
     lib.pp_setup_epilogue.argtypes = [vp, i32, vp, vp, vp, vp, i32, vp, vp,
-                                      vp, vp, vp, vp, i32, i32, i32, i32,
-                                      i32, i32, vp]
+                                      vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                      i32, i32, i32, i32, i32, i32, i32, vp]
     lib.pp_setup_epilogue.restype = i32
+    lib.pp_setup_epilogue_blocks_per_sm.argtypes = [i32, i32, i32]
+    lib.pp_setup_epilogue_blocks_per_sm.restype = i32
     lib.pp_fused_setup_fft.argtypes = [vp, i32, vp, i32, vp, vp, vp, vp, i32,
                                        vp, vp, vp, vp, vp, vp, i32, i32, i32,
                                        i32, i32, i32, vp]

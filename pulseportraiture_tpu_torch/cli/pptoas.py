@@ -4,13 +4,16 @@
         -o PSR.tim [--fit_dt4] [--fit_scat [--fit_alpha] [--no_logscat]] \
         [--nu_ref MHz] [--nu_tau MHz] [--one_DM] [--princeton] \
         [--narrowband | --psrchive [--algorithm PGS]] [--showplot] \
-        [--saveplot PREFIX] [--device cuda|cpu]
+        [--saveplot PREFIX] [--device cuda | --device cpu [--x64]]
 
 Runs the (phi, DM) fit, with --fit_dt4 also GM, with --fit_scat the
 scattering fit; with --narrowband per-channel FFTFIT TOAs, with
 --psrchive per-channel TOAs by a pat-style estimator.  All on the chosen
 device: "cuda" (the default) needs a card and stops with an error
-without one.  The template is a .gmodel, a .spl or a FITS archive.
+without one.  The fits run in float32, or with --x64 in float64 (the JAX
+tools' parity mode), which the card's kernels do not take: --x64 needs
+--device cpu and stops at argument parsing without it.  The template is
+a .gmodel, a .spl or a FITS archive.
 --showplot/--saveplot draw the first fitted subint of each archive
 (GetTOAs.show_fit; matplotlib).  The
 princeton output path of the reference calls an undefined method
@@ -22,6 +25,9 @@ from __future__ import annotations
 
 import argparse
 import sys
+
+from pulseportraiture_tpu_torch.cli import (add_common_args, fit_dtype,
+                                         parse_common_args)
 
 
 def build_parser():
@@ -93,16 +99,12 @@ def build_parser():
                         "subint per archive")
     p.add_argument("--saveplot", default=None,
                    help="save residual plots with this filename prefix")
-    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="device for the fits (default: cuda)")
     p.add_argument("--quiet", action="store_true")
-    return p
+    return add_common_args(p)
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
-    import torch
-
+    args = parse_common_args(build_parser(), argv)
     from pulseportraiture_tpu_torch.io.tim import (write_princeton_TOA,
                                                    write_TOAs)
     from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
@@ -124,7 +126,7 @@ def main(argv=None):
             k, _, v = kv.partition("=")
             addtnl[k] = v
     gt = GetTOAs(args.datafiles, args.modelfile, device=args.device,
-                 dtype=torch.float32,
+                 dtype=fit_dtype(args),
                  quiet=args.quiet)
     if args.psrchive:
         # pat-style lines; the wideband .tim machinery does not apply

@@ -3,11 +3,12 @@
     python -m pulseportraiture_tpu_torch.cli.ppzap -d X.fits [-o out.fits] \
         [-m X.spl [--snr_threshold 8] [--rchi2_threshold 1.3]] \
         [--nstd 3] [--per_subint] [--norm] [--print_cmds] \
-        [--device cuda|cpu]
+        [--device cuda | --device cpu [--x64]]
 
 Without a model, clips channels by their noise levels; with one (-m),
-fits TOAs on the chosen device ("cuda", the default, needs a card) and
-flags channels by reduced chi2 and S/N.  The mask is applied and a
+fits TOAs on the chosen device ("cuda", the default, needs a card), in
+float32 or with --x64 in float64 (the parity mode; CPU only, as in
+pptoas), and flags channels by reduced chi2 and S/N.  The mask is applied and a
 masked archive written (<datafile>.zap.fits by default); --print_cmds
 prints paz-style commands instead.  --showplot/--saveplot FILE show or
 write the histogram of the channels' reduced chi2 with the threshold
@@ -18,6 +19,9 @@ from __future__ import annotations
 
 import argparse
 import sys
+
+from pulseportraiture_tpu_torch.cli import (add_common_args, fit_dtype,
+                                         parse_common_args)
 
 
 def build_parser():
@@ -47,10 +51,8 @@ def build_parser():
                    help="model path: show the channel red-chi2 histogram")
     p.add_argument("--saveplot", default=None,
                    help="model path: save the histogram to this file")
-    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="device for the fits (default: cuda)")
     p.add_argument("--quiet", action="store_true")
-    return p
+    return add_common_args(p)
 
 
 def show_rchi2_histogram(channel_red_chi2s, threshold, show=False,
@@ -79,19 +81,17 @@ def show_rchi2_histogram(channel_red_chi2s, threshold, show=False,
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    args = parse_common_args(build_parser(), argv)
     outfile = args.outfile or (args.datafile + ".zap.fits")
 
     if args.modelfile:
-        import torch
-
         from pulseportraiture_tpu_torch.io.archive import (
             load_data, unload_new_archive)
         from pulseportraiture_tpu_torch.pipelines.toas import GetTOAs
         from pulseportraiture_tpu_torch.pipelines.zap import \
             zap_channels_from_fit
         gt = GetTOAs([args.datafile], args.modelfile, device=args.device,
-                     dtype=torch.float32, quiet=args.quiet)
+                     dtype=fit_dtype(args), quiet=args.quiet)
         gt.get_TOAs(quiet=args.quiet)
         zaps = zap_channels_from_fit(
             gt, SNR_threshold=args.snr_threshold,

@@ -58,13 +58,17 @@ Kernel note (the "rfft" route, `_launch_rfft`; every other nbin: odd,
   * Bound on the H100: bytes.  The route reads x (cuFFT), writes and
     reads X, writes Gr/Gi; the fused minimum (x read, Gr/Gi written) is
     the FFT route's.
-  * Design: a block takes one item and a tile of channels (items fastest,
-    so a tile's model rows are shared through L2), groups of tpr threads
-    a row, a thread a harmonic pair read by one 128-bit load where the
-    row is 16-byte aligned; sd summed by warp shuffles into per-warp
-    slots; seed partial sums in registers over the tile, then a second,
-    fixed-order pass over the tiles (no float atomics).
-  * setup_epilogue_reference walks the kernel's steps on a spectrum;
+  * Design (_epilogue_geometry): a thread owns groups of 4 harmonics on
+    the 16-byte boundaries of its Gr row (128-bit model loads and Gr/Gi
+    stores; X by 128-bit loads where aligned too; a masked head and
+    tail); a block takes a tile of the channels c = a mod 4 of one item
+    (one alignment for all its rows) and a slice of each row, sized to
+    the row, and walks the tile's rows, two or three blocks an SM (64
+    registers a thread); sd in a register, reduced once a row (slice);
+    seed partial sums in each thread's own shared-memory slots over the
+    tile, then a second, fixed-order pass over the tiles (no float
+    atomics).
+  * setup_epilogue_reference walks the kernel's tiles on a spectrum;
     fused_setup_reference (rfft + the same cross-spectrum) stays the CPU
     path.
 
@@ -183,8 +187,10 @@ def setup_epilogue_reference(X, mr, mi, f0_fact=False, w=None, scale=None,
     """Plain torch version of csrc/setup_epilogue.cu on a spectrum X (B,
     nchan, nhf), in mr's dtype, by the kernel's steps: X dequantized by
     scale, the cross-spectrum over the prefix k < nh, sd from the whole
-    spectrum, and the seed sums as partial sums over tiles of `rows`
-    channels (default: one tile) added tile by tile in order."""
+    spectrum, and the seed sums as partial sums over the kernel's tiles
+    (_epilogue_tile_channels: `rows` channels of one class c mod 4 a
+    tile; default: one tile of every channel) added tile by tile in
+    order."""
     dt = mr.dtype
     X = X.to(torch.complex128 if dt == torch.float64 else torch.complex64)
     Gr, Gi, sd = _cross_spectrum(X, mr, mi, f0_fact, None, scale)
@@ -192,11 +198,12 @@ def setup_epilogue_reference(X, mr, mi, f0_fact=False, w=None, scale=None,
         return Gr, Gi, sd
     B, nchan, nh = Gr.shape
     w = w.to(dt)
-    rows = nchan if rows is None else rows
+    tiles = [torch.arange(nchan)] if rows is None else \
+        _epilogue_tile_channels(nchan, rows)
     gsr = torch.zeros((B, w.shape[-1], nh), dtype=dt, device=Gr.device)
     gsi = torch.zeros_like(gsr)
-    for c0 in range(0, nchan, rows):
-        tile = slice(c0, c0 + rows)
+    for tile in tiles:
+        tile = tile.to(Gr.device)
         gsr = gsr + torch.einsum("bcs,bck->bsk", w[:, tile], Gr[:, tile])
         gsi = gsi + torch.einsum("bcs,bck->bsk", w[:, tile], Gi[:, tile])
     return Gr, Gi, sd, gsr, gsi
@@ -265,28 +272,109 @@ def setup_route(nbin: int) -> str:
 
 
 # what csrc/setup_epilogue.cu takes: at most 2 seed columns, tiles of at
-# most 64 channels, 256 threads a block in groups of 32..256 a row
-EPI_MAX_SEEDS, EPI_MAX_ROWS, EPI_THREADS = 2, 64, 256
+# most 128 channels, blocks of at most 512 threads; a row slice spans at
+# most 1536 groups of 4 harmonics (its seed slots, 64 bytes a group at
+# K = 2, stay under 100 KB of shared memory: two blocks an SM)
+EPI_MAX_SEEDS, EPI_MAX_ROWS, EPI_MAX_THREADS, EPI_MAX_SLICE = 2, 128, 512, 1536
+EPI_MIN_THREADS = 256
+
+EpilogueGeometry = collections.namedtuple(
+    "EpilogueGeometry",
+    "tpr groups steps lanes slice nslice rows ntile threads smem")
 
 
-def _epilogue_tpr(nhf: int) -> int:
-    """Threads a row of csrc/setup_epilogue.cu for a spectrum of nhf
-    harmonics: the power of two in 32..256 that covers its (nhf + 1) // 2
-    harmonic pairs in one chunk where it can."""
-    tpr = 32
-    while tpr < EPI_THREADS and tpr < (nhf + 1) // 2:
-        tpr *= 2
-    return tpr
+def _epilogue_shape(nhf: int, nh: int, rows: int):
+    """(tpr, groups, steps, lanes, slice, nslice) of csrc/setup_epilogue.cu
+    for `rows` rows of nhf harmonics, nh of them in Gr (16-byte aligned,
+    as _outputs allocates it): row r's groups of 4 harmonics start at its
+    head offset (r nh mod 4), so a row needs up to (nhf + head + 3) // 4
+    of them; they are cut into nslice slices of `slice` groups, as even as
+    can be, each taken by `lanes` threads in `steps` steps (lanes at most
+    512); tpr is lanes rounded up to a warp, and a block works on `groups`
+    rows at once, so that it has at least 256 threads."""
+    head = max((r * nh) % 4 for r in range(min(4, rows)))
+    ng = (nhf + head + 3) // 4
+    nslice = -(-ng // EPI_MAX_SLICE)
+    slice_ = -(-ng // nslice)
+    steps = -(-slice_ // EPI_MAX_THREADS)
+    lanes = -(-slice_ // steps)
+    tpr = 32 * -(-lanes // 32)
+    groups = max(1, EPI_MIN_THREADS // tpr)
+    return tpr, groups, steps, lanes, slice_, nslice
 
 
-def _epilogue_rows(B: int, nchan: int, nsm: int) -> int:
-    """Channels a tile of csrc/setup_epilogue.cu: the largest power of two
-    in 8..64 that still gives three blocks an SM (a block is 256
-    threads; a larger tile writes fewer seed partial sums)."""
+def _epilogue_tile_channels(nchan: int, rows: int):
+    """The channels of each tile of csrc/setup_epilogue.cu, in the tiles'
+    order: for each class a = 0..3 the channels c = a mod 4 in runs of
+    `rows` (rows four channels apart start at one offset mod 16 bytes)."""
+    tiles = []
+    for a in range(min(4, nchan)):
+        cls = torch.arange(a, nchan, 4)
+        tiles += list(torch.split(cls, rows))
+    return tiles
+
+
+def _epilogue_ntile(nchan: int, rows: int) -> int:
+    return sum(-(-len(range(a, nchan, 4)) // rows)
+               for a in range(min(4, nchan)))
+
+
+@functools.lru_cache(maxsize=64)
+def _epilogue_rows(B: int, nchan: int, nslice: int, slots: int) -> int:
+    """Channels a tile of csrc/setup_epilogue.cu: the largest count in
+    8..128 whose blocks (items x tiles x slices) still fill nine tenths
+    of the card's `slots` blocks at once.  A larger tile writes fewer
+    seed partial sums (K / rows of the Gr/Gi bytes); any count will do,
+    so the blocks come close to one whole wave (scripts/
+    torch_epilogue_variants.py --rows times others)."""
     rows = EPI_MAX_ROWS
-    while rows > 8 and B * -(-nchan // rows) < 3 * nsm:
-        rows //= 2
+    while rows > 8 and B * _epilogue_ntile(nchan, rows) * nslice < \
+            0.9 * slots:
+        rows -= 1
     return rows
+
+
+def _epilogue_geometry(B: int, nchan: int, nhf: int, nh: int, kseed: int,
+                       nsm: int, per_sm) -> EpilogueGeometry:
+    """csrc/setup_epilogue.cu's launch for B x nchan rows of nhf harmonics
+    (nh of them in Gr) and kseed seed columns on a card of nsm SMs:
+    _epilogue_shape, and _epilogue_rows for the blocks the card holds at
+    once (per_sm(threads, smem): the blocks an SM holds)."""
+    tpr, groups, steps, lanes, slice_, nslice = _epilogue_shape(
+        nhf, nh, B * nchan)
+    threads = tpr * groups
+    smem = groups * steps * kseed * 2 * lanes * 16
+    rows = _epilogue_rows(B, nchan, nslice, nsm * per_sm(threads, smem))
+    return EpilogueGeometry(tpr, groups, steps, lanes, slice_, nslice, rows,
+                            _epilogue_ntile(nchan, rows), threads, smem)
+
+
+@functools.lru_cache(maxsize=64)
+def _epilogue_blocks_per_sm(device_index: int, kseed: int, threads: int,
+                            smem: int) -> int:
+    from pulseportraiture_tpu_torch._build import load_kernels
+
+    with torch.cuda.device(device_index):
+        n = load_kernels().pp_setup_epilogue_blocks_per_sm(kseed, threads,
+                                                           smem)
+    if n < 1:
+        raise RuntimeError(f"setup epilogue: no block of {threads} threads "
+                           f"and {smem} bytes fits an SM ({n})")
+    return n
+
+
+def epilogue_geometry(B: int, nchan: int, nhf: int, nh: int, kseed: int,
+                      device) -> EpilogueGeometry:
+    """_epilogue_geometry on the card `device` (its SMs, and the blocks
+    an SM holds as the CUDA occupancy calculator gives them)."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return _epilogue_geometry(
+        B, nchan, nhf, nh, kseed,
+        torch.cuda.get_device_properties(index).multi_processor_count,
+        lambda threads, smem: _epilogue_blocks_per_sm(index, kseed, threads,
+                                                      smem))
 
 
 @functools.lru_cache(maxsize=8)
@@ -550,7 +638,7 @@ def _launch_rfft(x, mr, mi, f0_fact, w, scale):
 
 def _launch_epilogue(X, mr, mi, f0_fact, w, scale):
     """csrc/setup_epilogue.cu on a contiguous complex64 spectrum X and
-    checked arguments (_check), _epilogue_rows channels a tile."""
+    checked arguments (_check), with epilogue_geometry's launch."""
     from pulseportraiture_tpu_torch._build import load_kernels
 
     B, nchan, nhf = X.shape
@@ -559,30 +647,31 @@ def _launch_epilogue(X, mr, mi, f0_fact, w, scale):
     if kseed > EPI_MAX_SEEDS:
         raise ValueError(f"the setup epilogue takes at most {EPI_MAX_SEEDS} "
                          f"seed columns, got {kseed}")
-    rows = _epilogue_rows(B, nchan, torch.cuda.get_device_properties(
-        X.device).multi_processor_count)
-    ntile = -(-nchan // rows)
-    if ntile > 65535 or (kseed and B > 65535):
-        raise ValueError(f"setup epilogue: {ntile} tiles of {rows} channels"
-                         f" or B={B} items outside the grid")
     out = _outputs(X, nh, kseed)
-    part = None
-    if kseed:
-        part = torch.empty((B, ntile, kseed, 2, nh), dtype=torch.float32,
-                           device=X.device)
-    if B * nchan:
-        lib = load_kernels()
-        with torch.cuda.device(X.device):
-            err = lib.pp_setup_epilogue(
-                _ptr(X), ctypes.c_int(nhf), _ptr(mr), _ptr(mi), _ptr(scale),
-                _ptr(w), ctypes.c_int(kseed), *map(_ptr, out[:3]), _ptr(part),
-                *map(_ptr, out[3:] or (None, None)), ctypes.c_int(B),
-                ctypes.c_int(nchan), ctypes.c_int(nh),
-                ctypes.c_int(int(f0_fact)), ctypes.c_int(rows),
-                ctypes.c_int(_epilogue_tpr(nhf)), _stream(X.device))
-        if err != 0:
-            raise RuntimeError(f"pp_setup_epilogue launch failed: CUDA error "
-                               f"{err} ({lib.pp_error_string(err).decode()})")
+    if B * nchan == 0:
+        return tuple(out)
+    geo = epilogue_geometry(B, nchan, nhf, nh, kseed, X.device)
+    if geo.ntile > 65535 or (kseed and B > 65535):
+        raise ValueError(f"setup epilogue: {geo.ntile} tiles of {geo.rows} "
+                         f"channels or B={B} items outside the grid")
+    f32 = dict(dtype=torch.float32, device=X.device)
+    part = torch.empty((B, geo.ntile, kseed, 2, nh), **f32) if kseed \
+        else None
+    sdpart = torch.empty((B, nchan, geo.nslice), **f32) \
+        if geo.nslice > 1 else None
+    lib = load_kernels()
+    with torch.cuda.device(X.device):
+        err = lib.pp_setup_epilogue(
+            _ptr(X), ctypes.c_int(nhf), _ptr(mr), _ptr(mi), _ptr(scale),
+            _ptr(w), ctypes.c_int(kseed), *map(_ptr, out[:3]), _ptr(sdpart),
+            _ptr(part), *map(_ptr, out[3:] or (None, None)), ctypes.c_int(B),
+            ctypes.c_int(nchan), ctypes.c_int(nh), ctypes.c_int(int(f0_fact)),
+            *map(ctypes.c_int, (geo.rows, geo.tpr, geo.groups, geo.steps,
+                                geo.lanes, geo.slice, geo.nslice)),
+            _stream(X.device))
+    if err != 0:
+        raise RuntimeError(f"pp_setup_epilogue launch failed: CUDA error "
+                           f"{err} ({lib.pp_error_string(err).decode()})")
     return tuple(out)
 
 

@@ -27,9 +27,10 @@ full band), B items (--batch, default 64).
 Prints, per case: the batch's unprofiled wall ms (host clock to a
 synchronize, median of 3) and its profiled wall ms (the profiler slows
 the host), device busy ms (the union of kernel intervals), the setup
-kernels' (either route's hand kernels, with their seed reduction), the
-library FFT kernels' (cuFFT: the rfft route's transform, and any other
-FFT), the moments kernel's and all other kernels' ms, the kernel
+kernels' (either route's hand kernels, with their seed and data-power
+reductions), the library FFT kernels' (cuFFT: the rfft route's
+transform, and any other FFT), the moments kernel's and all other
+kernels' ms, the kernel
 launch count, and the idle share 1 - busy/wall against each wall
 (idle_share: the unprofiled wall; idle_share_profiled).  Needs a card.
 """
@@ -89,7 +90,8 @@ def profile(run):
     by = {"setup": 0.0, "fft": 0.0, "moments": 0.0, "other": 0.0}
     for e in kernels:
         dt = (e.time_range.end - e.time_range.start) / 1e3
-        if "setup_" in e.name or "seed_reduce" in e.name:
+        if "setup_" in e.name or "_reduce_epilogue" in e.name or \
+                "seed_reduce" in e.name:
             by["setup"] += dt
         elif "fft" in e.name.lower():
             by["fft"] += dt

@@ -253,27 +253,54 @@ def test_scattering_moments_kernel_offset_views(cuda, off_r, off_i, off_m):
     (16384, False, False, False, 33, True, "rfft"),
     (16384, False, True, False, 70, True, "rfft"),
     (16384, False, False, True, 5, False, "rfft"),
+    # the rfft route's epilogue: every head offset (nh odd: rows four
+    # channels apart share one), nh mod 4 = 0..3 over odd nhf (501, 503,
+    # 129) and even nhf (502, 500), prefixes (capped = nh), K = 0, 1 and
+    # 2 (seeds), one tile (B = 1, one channel: nchan = (B, nchan)),
+    # channels not a multiple of the tile, two row slices (16384)
+    (1000, 500, False, False, 33, True, "rfft"),
+    (1000, 499, True, False, 33, 1, "rfft"),
+    (1000, 498, False, True, (1, 7), False, "rfft"),
+    (1000, 125, False, False, (2, 70), True, "rfft"),
+    (1002, False, False, False, 33, True, "rfft"),
+    (1002, 501, True, False, 70, 1, "rfft"),
+    (1002, 500, False, False, (1, 5), True, "rfft"),
+    (1002, 499, False, True, (2, 33), False, "rfft"),
+    (1004, False, True, False, 33, 1, "rfft"),
+    (998, False, False, False, 70, True, "rfft"),
+    (257, False, False, False, 33, 1, "rfft"),
+    (1000, False, False, False, (1, 1), True, "rfft"),
+    (4608, False, True, False, (3, 300), 1, "rfft"),
+    (16384, False, False, False, (1, 9), 1, "rfft"),
+    (16384, 8000, True, False, (2, 13), True, "rfft"),
 ])
 def test_fused_setup_kernel_matches_twin(cuda, nbin, capped, i16, f0_fact,
                                          nchan, seeds, route):
+    # nchan may be (B, nchan); seeds: True for 2 seed columns, False for
+    # none, or the count; capped: True for the band cap, False for the
+    # full band, or the count of harmonics of a prefix
+    B, nchan = nchan if isinstance(nchan, tuple) else (3, nchan)
+    kseed = 2 if seeds is True else 0 if seeds is False else seeds
+    seeds = kseed > 0
     rng = np.random.default_rng(nbin + nchan)
-    B = 3
     model, data = _portrait(rng, B, nchan, nbin)
     mf = np.fft.rfft(model, axis=-1)
     mr, mi = mf.real.astype(np.float32), mf.imag.astype(np.float32)
-    if capped:
+    if capped is True:
         mr, mi, mh = sdft.band_cap_model_ft(mr, mi, nbin, f0_fact=f0_fact)
         assert mh is not None
         nh = sdft.cap_nharm(nbin, mh)
         mr, mi = mr[:, :nh], mi[:, :nh]
+    elif capped is not False:
+        mr, mi = mr[:, :capped], mi[:, :capped]
     scale = None
     x = data
     if i16:
         from pulseportraiture_tpu_torch.io.native import quantize_i2
         raw, scl, _ = quantize_i2(data)
         x, scale = raw, scl.astype(np.float32)
-    w = rng.uniform(0.5, 2.0, (B, nchan, 2)).astype(np.float32)
-    w[:, : nchan // 2, 1] = 0.0
+    w = rng.uniform(0.5, 2.0, (B, nchan, max(kseed, 1))).astype(np.float32)
+    w[:, : nchan // 2, -1] = 0.0
     dev = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
            for a in (x, mr, mi, w)]
     sc = None if scale is None else torch.from_numpy(scale).to(cuda)
@@ -313,16 +340,19 @@ def test_fused_setup_kernel_matches_twin(cuda, nbin, capped, i16, f0_fact,
         # the epilogue alone against its twin on the same spectrum
         X = torch.fft.rfft(dev[0].float(), dim=-1)
         epi = sdft._launch_epilogue(X, dev[1], dev[2], f0_fact, wt, sc)
-        rows = sdft._epilogue_rows(B, nchan, torch.cuda.get_device_properties(
-            cuda).multi_processor_count)
+        rows = sdft.epilogue_geometry(B, nchan, X.shape[-1],
+                                      dev[1].shape[-1], kseed, cuda).rows
         twin = sdft.setup_epilogue_reference(
             X, dev[1].double(), dev[2].double(), f0_fact=f0_fact,
             w=None if wt is None else wt.double(),
             scale=None if sc is None else sc.double(), rows=rows)
+        again = sdft._launch_epilogue(X, dev[1], dev[2], f0_fact, wt, sc)
         torch.cuda.synchronize()
-        for name, g, r in zip(names, epi, twin):
+        assert len(epi) == (5 if seeds else 3)
+        for name, g, r, a in zip(names, epi, twin, again):
             bound = 4e-6 * float(r.abs().max())
             assert float((g.double() - r).abs().max()) <= bound, name
+            assert torch.equal(g, a), name
 
 
 @pytest.mark.cuda

@@ -243,8 +243,8 @@ def test_epilogue_reference_matches_jax_make_setup(nbin, nchan, capped, i16,
     per-channel data power (every harmonic: no Nyquist term at odd nbin)
     and of the seed sums formed from the JAX package's cross-spectrum.
     int16 rows: scale after the transform here, the rows dequantized
-    first on the JAX side.  Tiles of 2 channels: the seed sums added
-    tile by tile."""
+    first on the JAX side.  Tiles of 2 channels of one class c mod 4, as
+    the kernel's: the seed sums added tile by tile."""
     from pulseportraiture_tpu.fitters import stats as jstats
 
     x, mr, mi, w, scale = _inputs(nbin, nchan, capped, i16, K, f0_fact)
@@ -413,6 +413,79 @@ def test_fft_rows_per_block_fill_the_card(B, nchan, want):
     assert rows == want
     assert rows == 8 or B * -(-nchan // rows) >= 1.8 * 132
     assert rows == 64 or B * -(-nchan // (2 * rows)) < 1.8 * 132
+
+
+@pytest.mark.parametrize("nhf,nh,want", [
+    (2, 2, (32, 8, 1, 1, 1, 1)), (128, 128, (32, 8, 1, 32, 32, 1)),
+    (129, 128, (64, 4, 1, 33, 33, 1)), (501, 501, (128, 2, 1, 126, 126, 1)),
+    (501, 125, (128, 2, 1, 126, 126, 1)), (502, 502, (128, 2, 1, 126, 126, 1)),
+    (2177, 2177, (288, 1, 2, 273, 545, 1)),
+    (2305, 2305, (320, 1, 2, 289, 577, 1)),
+    (3841, 3841, (512, 1, 2, 481, 961, 1)),
+    (8193, 8193, (352, 1, 3, 342, 1025, 2)),
+    (16385, 16385, (480, 1, 3, 456, 1366, 3)),
+])
+def test_epilogue_shape(nhf, nh, want):
+    """csrc/setup_epilogue.cu's row geometry: every group of 4 harmonics
+    a row can need (its head offset r nh mod 4 puts the first group up
+    to 3 harmonics before 0) falls in a slice; slices and a slice's steps
+    as even as can be (no nearly empty slice or step, the last step of a
+    slice keeps all but `steps` lanes busy); at most 512 threads a row, a
+    warp's multiple; at least 256 threads a block (rows at once); the
+    seed slots under 100 KB of shared memory at K = 2."""
+    got = sdft._epilogue_shape(nhf, nh, 4096)
+    assert got == want
+    tpr, groups, steps, lanes, slice_, nslice = got
+    ng = (nhf + max(r * nh % 4 for r in range(4)) + 3) // 4
+    assert slice_ * nslice >= ng > (slice_ - 1) * nslice
+    assert lanes * steps >= slice_ > (lanes - 1) * steps
+    assert slice_ - lanes * (steps - 1) >= lanes - steps
+    assert lanes <= tpr < lanes + 32 and tpr % 32 == 0
+    assert 256 <= tpr * groups <= 512
+    assert groups * steps * 2 * 2 * lanes * 16 <= 100 * 1024
+    # one row: its head offset is 0
+    one = sdft._epilogue_shape(nhf, nh, 1)
+    assert one[4] * one[5] >= (nhf + 3) // 4
+
+
+@pytest.mark.parametrize("nchan,rows", [(1, 8), (3, 2), (7, 2), (300, 8),
+                                        (4096, 128), (4097, 32)])
+def test_epilogue_tiles(nchan, rows):
+    """The kernel's tiles cover every channel once; a tile holds at most
+    `rows` channels of one class c mod 4, four channels apart (one
+    alignment); _epilogue_ntile counts them."""
+    tiles = sdft._epilogue_tile_channels(nchan, rows)
+    assert len(tiles) == sdft._epilogue_ntile(nchan, rows)
+    assert sorted(torch.cat(tiles).tolist()) == list(range(nchan))
+    for t in tiles:
+        assert 1 <= len(t) <= rows
+        assert bool(torch.all(torch.diff(t) == 4))
+    classes = [int(t[0]) % 4 for t in tiles]
+    assert classes == sorted(classes)
+
+
+@pytest.mark.parametrize("B,nchan,nhf,per_sm,want", [
+    (4, 4096, 8193, 2, 128), (4, 4096, 2305, 3, 46), (4, 4096, 2305, 2, 73),
+    (4, 4096, 128, 4, 35), (1, 512, 501, 4, 8), (64, 4096, 2305, 3, 128),
+    (3, 70, 501, 4, 8), (4, 4096, 3841, 2, 73),
+])
+def test_epilogue_rows_fill_the_card(B, nchan, nhf, per_sm, want):
+    """132 SMs holding per_sm blocks each: the largest tile of 8..128
+    channels whose blocks (items x tiles x slices) still fill nine
+    tenths of the slots."""
+    geo = sdft._epilogue_geometry(B, nchan, nhf, nhf, 2, 132,
+                                  lambda t, m: per_sm)
+    assert geo.rows == want
+    slots = 0.9 * 132 * per_sm
+
+    def blocks(r):
+        return B * sdft._epilogue_ntile(nchan, r) * geo.nslice
+
+    assert blocks(geo.rows) == B * geo.ntile * geo.nslice
+    assert geo.rows == 8 or blocks(geo.rows) >= slots
+    assert geo.rows == 128 or blocks(geo.rows + 1) < slots
+    assert geo.threads == geo.tpr * geo.groups
+    assert geo.smem == geo.groups * geo.steps * 2 * 2 * geo.lanes * 16
 
 
 def test_cpu_tensors_take_the_twin_and_count_nothing():
