@@ -6,7 +6,10 @@ item whose loop condition is false keeps its state.  Here that is an
 explicit loop over a leading batch axis: fgh is evaluated for the whole
 batch each iteration, and finished items are frozen (x, f, g, H, aux, it,
 nfev and status stop changing) by masked selects.  The host syncs once
-per iteration, on "all done".
+per iteration, on "all done".  Under a torch profiler each iteration is
+a "pp:newton.iter" range holding its objective ("pp:newton.fgh") and
+its two subproblem solves ("pp:newton.solve"); the first objective is a
+"pp:newton.fgh" of its own (profiling.annotate).
 
 The subproblem is solved exactly (Moré–Sorensen on the <=5x5 Hessian via
 batched torch.linalg.eigh).  Carried over unchanged: the f32 acceptance
@@ -50,6 +53,8 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+
+from pulseportraiture_tpu_torch.profiling import annotate
 
 DEC_TOL = 1e-6
 FLOOR_K = 4.0
@@ -195,7 +200,8 @@ def trust_region_minimize(fgh: Callable, x0, max_iter: int = 100,
     a (nested) dict of tensors with a leading batch axis, carried for the
     accepted point.
     """
-    out = fgh(x0)
+    with annotate("pp:newton.fgh"):
+        out = fgh(x0)
     f0, g0, H0 = out[:3]
     aux = out[3] if has_aux else None
     dtype, dev = f0.dtype, f0.device
@@ -220,97 +226,102 @@ def trust_region_minimize(fgh: Callable, x0, max_iter: int = 100,
         active = (~done) & (it < max_iter)
         if not bool(active.any()):
             break
-        p, hit = _tr_solve(g, H, radius, hard_case=low)
-        if mask is not None:
-            p = p * mask
-        x_new = x + p
-        out = fgh(x_new)
-        f_new, g_new, H_new = out[:3]
-        pred = -(torch.sum(g * p, dim=-1) + 0.5 * torch.sum(p * _mv(H, p),
-                                                             dim=-1))
-        actual = f - f_new
-        rho = actual / torch.where(pred > 0.0, pred, tiny)
-        # below the floating-point resolution of f the ratio is rounding
-        # noise: accept and declare ftol-convergence
-        eps_f = 8.0 * feps * torch.abs(f)
-        tiny_pred = (pred <= eps_f) & (actual >= -4.0 * eps_f)
-        accept = (pred > 0.0) & ((rho > 0.15) | tiny_pred) & \
-            torch.isfinite(f_new)
-        pnorm = torch.sqrt(torch.sum(p ** 2, dim=-1))
-        # a non-finite trial must shrink the radius, or the same bad step
-        # is retried until max_iter
-        bad = ~torch.isfinite(rho) | ~torch.isfinite(f_new)
-        radius_n = torch.where(
-            bad | (rho < 0.25), 0.25 * pnorm,
-            torch.where((rho > 0.75) & hit,
-                        torch.clamp(2.0 * radius, max=max_radius), radius))
-        x_n = _select(accept, x_new, x)
-        f_n = torch.where(accept, f_new, f)
-        g_n = _select(accept, g_new, g)
-        H_n = _select(accept, H_new, H)
-        aux_n = _select_aux(accept, out[3], aux) if has_aux else None
-        stall = accept & ~hit
-        if low:
-            # a full Newton step that fails to halve the decrement stalls
-            # only at the floor that rounding sets: slow (linear)
-            # convergence far above it, as where the float32 Hessian
-            # misses a weak direction, goes on
-            dec_n, newton_len, floor = _newton_decrement(
-                g_n, H_n, mask, floor_of=(f_n, x_n, feps))
-            stall = stall & (dec_n <= FLOOR_K * floor)
-        else:
-            dec_n, newton_len = _newton_decrement(g_n, H_n, mask)
-        stall = stall & (dec_n > 0.5 * dec)
-        newton_len = newton_len.to(dtype)
-        resolved = (dec_n <= DEC_TOL) | stall
-        # below the resolution of f rho cannot steer the radius: let an
-        # item that goes on take the full Newton step
-        radius_n = torch.where(
-            accept & tiny_pred & torch.isfinite(newton_len),
-            torch.clamp(torch.maximum(radius_n, 2.0 * newton_len),
-                        max=max_radius), radius_n)
-        if low:
-            # nor, where H is not positive definite, may the radius
-            # collapse on a rho that is noise: the model steers, and a
-            # step to the boundary doubles it
+        with annotate("pp:newton.iter"):
+            with annotate("pp:newton.solve"):
+                p, hit = _tr_solve(g, H, radius, hard_case=low)
+            if mask is not None:
+                p = p * mask
+            x_new = x + p
+            with annotate("pp:newton.fgh"):
+                out = fgh(x_new)
+            f_new, g_new, H_new = out[:3]
+            pred = -(torch.sum(g * p, dim=-1) + 0.5 * torch.sum(p * _mv(H, p),
+                                                                 dim=-1))
+            actual = f - f_new
+            rho = actual / torch.where(pred > 0.0, pred, tiny)
+            # below the floating-point resolution of f the ratio is rounding
+            # noise: accept and declare ftol-convergence
+            eps_f = 8.0 * feps * torch.abs(f)
+            tiny_pred = (pred <= eps_f) & (actual >= -4.0 * eps_f)
+            accept = (pred > 0.0) & ((rho > 0.15) | tiny_pred) & \
+                torch.isfinite(f_new)
+            pnorm = torch.sqrt(torch.sum(p ** 2, dim=-1))
+            # a non-finite trial must shrink the radius, or the same bad step
+            # is retried until max_iter
+            bad = ~torch.isfinite(rho) | ~torch.isfinite(f_new)
             radius_n = torch.where(
-                accept & tiny_pred & hit & ~torch.isfinite(newton_len),
-                torch.clamp(2.0 * radius, max=max_radius), radius_n)
-        gnorm = torch.sqrt(torch.sum(g_n ** 2, dim=-1))
-        gconv = (gnorm < gtol) | ((gnorm < gtol_rel * g0norm) & resolved)
-        xconv = accept & (pnorm < xtol)
-        # speculative final step on the accepted point: when the next
-        # subproblem's predicted decrease is below the resolution of f
-        # AND the step is no longer than the one just verified, take it
-        # now and stop without paying its fgh evaluation
-        p2, _ = _tr_solve(g_n, H_n, radius_n, hard_case=low)
-        if mask is not None:
-            p2 = p2 * mask
-        pred2 = -(torch.sum(g_n * p2, dim=-1) +
-                  0.5 * torch.sum(p2 * _mv(H_n, p2), dim=-1))
-        below2 = (pred2 >= 0.0) & (pred2 <= 8.0 * feps * torch.abs(f_n)) & \
-            (torch.sqrt(torch.sum(p2 ** 2, dim=-1)) <= pnorm)
-        spec = accept & below2 & resolved
-        x_n = _select(spec, x_n + p2, x_n)
-        fconv = (accept & (ftol > 0.0) & (actual < ftol * torch.clamp(
-            torch.abs(f), min=1.0))) | \
-            (accept & tiny_pred & (pred > 0.0) & resolved) | spec
-        stalled = (~accept) & (radius_n < xtol)
-        done_n = gconv | xconv | fconv | stalled
-        status_n = torch.where(gconv, 0, torch.where(
-            fconv, 1, torch.where(xconv | stalled, 2, status)))
-        # freeze the items whose loop had already ended (vmap semantics)
-        x = _select(active, x_n, x)
-        f = torch.where(active, f_n, f)
-        g = _select(active, g_n, g)
-        H = _select(active, H_n, H)
-        if has_aux:
-            aux = _select_aux(active, aux_n, aux)
-        radius = torch.where(active, radius_n, radius)
-        dec = torch.where(active, dec_n, dec)
-        status = torch.where(active, status_n, status)
-        done = torch.where(active, done_n, done)
-        it = it + active.to(it.dtype)
-        nfev = nfev + active.to(nfev.dtype)
+                bad | (rho < 0.25), 0.25 * pnorm,
+                torch.where((rho > 0.75) & hit,
+                            torch.clamp(2.0 * radius, max=max_radius), radius))
+            x_n = _select(accept, x_new, x)
+            f_n = torch.where(accept, f_new, f)
+            g_n = _select(accept, g_new, g)
+            H_n = _select(accept, H_new, H)
+            aux_n = _select_aux(accept, out[3], aux) if has_aux else None
+            stall = accept & ~hit
+            if low:
+                # a full Newton step that fails to halve the decrement stalls
+                # only at the floor that rounding sets: slow (linear)
+                # convergence far above it, as where the float32 Hessian
+                # misses a weak direction, goes on
+                dec_n, newton_len, floor = _newton_decrement(
+                    g_n, H_n, mask, floor_of=(f_n, x_n, feps))
+                stall = stall & (dec_n <= FLOOR_K * floor)
+            else:
+                dec_n, newton_len = _newton_decrement(g_n, H_n, mask)
+            stall = stall & (dec_n > 0.5 * dec)
+            newton_len = newton_len.to(dtype)
+            resolved = (dec_n <= DEC_TOL) | stall
+            # below the resolution of f rho cannot steer the radius: let an
+            # item that goes on take the full Newton step
+            radius_n = torch.where(
+                accept & tiny_pred & torch.isfinite(newton_len),
+                torch.clamp(torch.maximum(radius_n, 2.0 * newton_len),
+                            max=max_radius), radius_n)
+            if low:
+                # nor, where H is not positive definite, may the radius
+                # collapse on a rho that is noise: the model steers, and a
+                # step to the boundary doubles it
+                radius_n = torch.where(
+                    accept & tiny_pred & hit & ~torch.isfinite(newton_len),
+                    torch.clamp(2.0 * radius, max=max_radius), radius_n)
+            gnorm = torch.sqrt(torch.sum(g_n ** 2, dim=-1))
+            gconv = (gnorm < gtol) | ((gnorm < gtol_rel * g0norm) & resolved)
+            xconv = accept & (pnorm < xtol)
+            # speculative final step on the accepted point: when the next
+            # subproblem's predicted decrease is below the resolution of f
+            # AND the step is no longer than the one just verified, take it
+            # now and stop without paying its fgh evaluation
+            with annotate("pp:newton.solve"):
+                p2, _ = _tr_solve(g_n, H_n, radius_n, hard_case=low)
+            if mask is not None:
+                p2 = p2 * mask
+            pred2 = -(torch.sum(g_n * p2, dim=-1) +
+                      0.5 * torch.sum(p2 * _mv(H_n, p2), dim=-1))
+            below2 = (pred2 >= 0.0) & \
+                (pred2 <= 8.0 * feps * torch.abs(f_n)) & \
+                (torch.sqrt(torch.sum(p2 ** 2, dim=-1)) <= pnorm)
+            spec = accept & below2 & resolved
+            x_n = _select(spec, x_n + p2, x_n)
+            fconv = (accept & (ftol > 0.0) & (actual < ftol * torch.clamp(
+                torch.abs(f), min=1.0))) | \
+                (accept & tiny_pred & (pred > 0.0) & resolved) | spec
+            stalled = (~accept) & (radius_n < xtol)
+            done_n = gconv | xconv | fconv | stalled
+            status_n = torch.where(gconv, 0, torch.where(
+                fconv, 1, torch.where(xconv | stalled, 2, status)))
+            # freeze the items whose loop had already ended (vmap semantics)
+            x = _select(active, x_n, x)
+            f = torch.where(active, f_n, f)
+            g = _select(active, g_n, g)
+            H = _select(active, H_n, H)
+            if has_aux:
+                aux = _select_aux(active, aux_n, aux)
+            radius = torch.where(active, radius_n, radius)
+            dec = torch.where(active, dec_n, dec)
+            status = torch.where(active, status_n, status)
+            done = torch.where(active, done_n, done)
+            it = it + active.to(it.dtype)
+            nfev = nfev + active.to(nfev.dtype)
     return NewtonResult(x=x, fun=f, grad=g, hess=H, niter=it, nfev=nfev,
                         status=status, success=status < 3, aux=aux)

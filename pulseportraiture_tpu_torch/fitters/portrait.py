@@ -35,6 +35,7 @@ from pulseportraiture_tpu_torch.ops.transform import (_inv2, _inv4,
                                                       mod_pm_half,
                                                       phase_shifts,
                                                       phase_shifts_deriv)
+from pulseportraiture_tpu_torch.profiling import annotate
 from pulseportraiture_tpu_torch.utils import DataBunch
 
 
@@ -279,168 +280,183 @@ def _fit_batch(data_ports, model_ft_ri, init_params, Ps, freqs, errs,
     reduced on its own device (tallies: a launch tally per slab), and the
     rest of the fit runs on the lead.  model_ft_ri may then also be a dict
     {device: (mr, mi)} holding the template on each device.
+
+    Under a torch profiler the phases are sibling ranges, in order:
+    pp:fit.setup, pp:fit.seed, pp:fit.newton (the loop's own ranges
+    inside), pp:fit.nu_zeros and pp:fit.finalize.
     """
-    ff = tuple(int(bool(f)) for f in fit_flags)
-    scattering = bool(ff[3] or ff[4]) or bool(scattering)
-    log10_tau = bool(log10_tau) and scattering
-    devices = [torch.device(d) for d in chan_devices or [data_ports.device]]
-    dev = devices[0]
-    require_f32_matmul("fit_portrait_full_batch", dev)
-    if dtype is None:
-        dtype = (torch.float32 if data_ports.dtype == torch.int16
-                 else data_ports.dtype)
-    if not dtype.is_floating_point:
-        raise TypeError(f"fit dtype must be floating, got {dtype}")
-    B, nchan, nbin = data_ports.shape
+    with annotate("pp:fit.setup"):
+        ff = tuple(int(bool(f)) for f in fit_flags)
+        scattering = bool(ff[3] or ff[4]) or bool(scattering)
+        log10_tau = bool(log10_tau) and scattering
+        devices = [torch.device(d)
+                   for d in chan_devices or [data_ports.device]]
+        dev = devices[0]
+        require_f32_matmul("fit_portrait_full_batch", dev)
+        if dtype is None:
+            dtype = (torch.float32 if data_ports.dtype == torch.int16
+                     else data_ports.dtype)
+        if not dtype.is_floating_point:
+            raise TypeError(f"fit dtype must be floating, got {dtype}")
+        B, nchan, nbin = data_ports.shape
 
-    def as_t(v, d=dev):
-        return torch.as_tensor(v, dtype=dtype, device=d)
+        def as_t(v, d=dev):
+            return torch.as_tensor(v, dtype=dtype, device=d)
 
-    if scales is not None:
-        if F0_FACT:
-            raise ValueError("int16 ingest requires F0_FACT zeroing")
-        scales = as_t(scales).expand(B, nchan).contiguous()
-    freqs = as_t(freqs)
-    if freqs.dim() == 1:
-        freqs = freqs.expand(B, nchan)
-    freqs = freqs.contiguous()
-    Ps = as_t(Ps)
-    errs = as_t(errs)
-    weights = torch.ones_like(errs) if weights is None else as_t(weights)
-    nu_fits = (freqs.mean(dim=-1)[:, None].expand(B, 3) if nu_fits is None
-               else as_t(nu_fits))
-    spectra = {}
+        if scales is not None:
+            if F0_FACT:
+                raise ValueError("int16 ingest requires F0_FACT zeroing")
+            scales = as_t(scales).expand(B, nchan).contiguous()
+        freqs = as_t(freqs)
+        if freqs.dim() == 1:
+            freqs = freqs.expand(B, nchan)
+        freqs = freqs.contiguous()
+        Ps = as_t(Ps)
+        errs = as_t(errs)
+        weights = torch.ones_like(errs) if weights is None else as_t(weights)
+        nu_fits = (freqs.mean(dim=-1)[:, None].expand(B, 3) if nu_fits is None
+                   else as_t(nu_fits))
+        spectra = {}
 
-    def spectrum(d):
-        """The template's (mr, mi) on device d."""
-        if d not in spectra:
-            pair = model_ft_ri[d] if isinstance(model_ft_ri, dict) \
-                else model_ft_ri
-            spectra[d] = tuple(as_t(v, d).contiguous() for v in pair)
-        return spectra[d]
+        def spectrum(d):
+            """The template's (mr, mi) on device d."""
+            if d not in spectra:
+                pair = model_ft_ri[d] if isinstance(model_ft_ri, dict) \
+                    else model_ft_ri
+                spectra[d] = tuple(as_t(v, d).contiguous() for v in pair)
+            return spectra[d]
 
-    mr, mi = spectrum(dev)
-    nh = mr.shape[-1]
-    per_item = mr.dim() == 3
-    if mr.shape != mi.shape or mr.shape[:-1] != ((B, nchan) if per_item
-                                                 else (nchan,)):
-        raise ValueError(f"model_ft_ri must be (nchan, nh) or (B, nchan, nh) "
-                         f"pairs; got {tuple(mr.shape)}, {tuple(mi.shape)} "
-                         f"for data {tuple(data_ports.shape)}")
-    if per_item and seed_phase:
-        raise ValueError("a template per item needs seed_phase=False: the "
-                         "brute seed's sums are taken by the setup kernel "
-                         "against one shared template")
+        mr, mi = spectrum(dev)
+        nh = mr.shape[-1]
+        per_item = mr.dim() == 3
+        if mr.shape != mi.shape or mr.shape[:-1] != ((B, nchan) if per_item
+                                                     else (nchan,)):
+            raise ValueError(f"model_ft_ri must be (nchan, nh) or (B, nchan, "
+                             f"nh) pairs; got {tuple(mr.shape)}, "
+                             f"{tuple(mi.shape)} for data "
+                             f"{tuple(data_ports.shape)}")
+        if per_item and seed_phase:
+            raise ValueError("a template per item needs seed_phase=False: the "
+                             "brute seed's sums are taken by the setup kernel "
+                             "against one shared template")
 
-    errs_FT = errs * math.sqrt(nbin / 2.0)
-    w = torch.where(errs_FT > 0.0, errs_FT ** -2.0,
-                    torch.zeros_like(errs_FT)) * (weights > 0.0)
-    w_seed = None
-    if seed_phase:
-        hi_mask = (torch.arange(nchan, device=dev) >= nchan // 2).to(dtype)
-        w_seed = torch.stack([w, w * hi_mask[None, :]], dim=-1).contiguous()
+        errs_FT = errs * math.sqrt(nbin / 2.0)
+        w = torch.where(errs_FT > 0.0, errs_FT ** -2.0,
+                        torch.zeros_like(errs_FT)) * (weights > 0.0)
+        w_seed = None
+        if seed_phase:
+            hi_mask = (torch.arange(nchan, device=dev) >=
+                       nchan // 2).to(dtype)
+            w_seed = torch.stack([w, w * hi_mask[None, :]],
+                                 dim=-1).contiguous()
 
-    def setup_slab(d, c):
-        """The setup of channels c on device d: (Gr, Gi, sd[, gsr, gsi])
-        and the slab's M2."""
-        x = data_ports[:, c].to(d)
-        if scales is None and x.dtype != dtype:
-            x = x.to(dtype)
-        x = x.contiguous()
-        sc = None if scales is None else scales[:, c].to(d).contiguous()
-        mr_s, mi_s = (v[..., c, :].contiguous() for v in spectrum(d))
-        n = x.shape[1]
-        if per_item:
-            # the setup takes one template row per channel row: run it as
-            # ONE item of B*n channels (whatever B and n are, e.g. 4096
-            # single-channel items); its seed sums would then run over the
-            # whole batch, so a template per item comes with the caller's
-            # start
-            out = tuple(t.view(B, n, *t.shape[2:]) for t in fused_setup(
-                x.view(1, B * n, nbin), mr_s.view(B * n, nh),
-                mi_s.view(B * n, nh), f0_fact=bool(F0_FACT),
-                scale=None if sc is None else sc.view(1, B * n)))
+        def setup_slab(d, c):
+            """The setup of channels c on device d: (Gr, Gi, sd[, gsr, gsi])
+            and the slab's M2."""
+            x = data_ports[:, c].to(d)
+            if scales is None and x.dtype != dtype:
+                x = x.to(dtype)
+            x = x.contiguous()
+            sc = None if scales is None else scales[:, c].to(d).contiguous()
+            mr_s, mi_s = (v[..., c, :].contiguous() for v in spectrum(d))
+            n = x.shape[1]
+            if per_item:
+                # the setup takes one template row per channel row: run it as
+                # ONE item of B*n channels (whatever B and n are, e.g. 4096
+                # single-channel items); its seed sums would then run over the
+                # whole batch, so a template per item comes with the caller's
+                # start
+                out = tuple(t.view(B, n, *t.shape[2:]) for t in fused_setup(
+                    x.view(1, B * n, nbin), mr_s.view(B * n, nh),
+                    mi_s.view(B * n, nh), f0_fact=bool(F0_FACT),
+                    scale=None if sc is None else sc.view(1, B * n)))
+            else:
+                out = fused_setup(x, mr_s, mi_s, f0_fact=bool(F0_FACT),
+                                  w=None if w_seed is None else
+                                  w_seed[:, c].to(d).contiguous(), scale=sc)
+            return out, mr_s * mr_s + mi_s * mi_s
+
+        bounds = np.cumsum([0] + [len(c) for c in np.array_split(
+            np.arange(nchan), len(devices))])
+        slabs = []
+        for i, d in enumerate(devices):
+            with tally(None if tallies is None else tallies[i]):
+                slabs.append(setup_slab(d, slice(bounds[i], bounds[i + 1])))
+        outs, M2s = zip(*slabs)
+
+        sd = torch.cat([o[2].to(dev) for o in outs], dim=1)
+        if len(devices) == 1 and dev == outs[0][0].device:
+            Gr, Gi, M2 = outs[0][0], outs[0][1], M2s[0]
+            M2_lead = M2
         else:
-            out = fused_setup(x, mr_s, mi_s, f0_fact=bool(F0_FACT),
-                              w=None if w_seed is None else
-                              w_seed[:, c].to(d).contiguous(), scale=sc)
-        return out, mr_s * mr_s + mi_s * mi_s
-
-    bounds = np.cumsum([0] + [len(c) for c in np.array_split(
-        np.arange(nchan), len(devices))])
-    slabs = []
-    for i, d in enumerate(devices):
-        with tally(None if tallies is None else tallies[i]):
-            slabs.append(setup_slab(d, slice(bounds[i], bounds[i + 1])))
-    outs, M2s = zip(*slabs)
-
-    sd = torch.cat([o[2].to(dev) for o in outs], dim=1)
-    if len(devices) == 1 and dev == outs[0][0].device:
-        Gr, Gi, M2 = outs[0][0], outs[0][1], M2s[0]
-        M2_lead = M2
-    else:
-        tl = tuple(tallies or [None] * len(devices))
-        Gr, Gi, M2 = (stats.ChanSlabs(tuple(p), tl) for p in (
-            [o[0] for o in outs], [o[1] for o in outs], M2s))
-        # the per-channel sums of M2 on the lead, from its own copy of
-        # the template: a card's reduction order depends on the shape, so
-        # sums over slabs would not be the single-device fit's bits
-        M2_lead = mr * mr + mi * mi
-    init = as_t(init_params).clone()
-    if seed_phase:
-        # the band's seed sums, added over the slabs in channel order
-        gsr, gsi = (functools.reduce(torch.add, [o[j].to(dev) for o in outs])
-                    for j in (3, 4))
-    if seed_phase and ff[1]:
-        kvec = torch.arange(nh, dtype=dtype, device=dev)
-        wcurv = w * torch.sum(M2_lead * kvec * kvec, dim=-1)
-        beta = freqs ** -2.0 - (nu_fits[:, 0] ** -2.0)[:, None]
-        kdm = DCONST / Ps
-        phi0, dm0 = _seed_phi_dm(gsr, gsi, wcurv, beta, kdm)
-        init[:, 0] = phi0
-        init[:, 1] = dm0
-    elif seed_phase:
-        init[:, 0] = _brute_phase_seed(gsr[:, 0], gsi[:, 0])
-    setup = stats.FitSetup(
-        Gr=Gr, Gi=Gi, M2=M2, w=w, freqs=freqs, P=Ps, nu_DM=nu_fits[:, 0],
-        nu_GM=nu_fits[:, 1], nu_tau=nu_fits[:, 2],
-        Sd=torch.sum(w * sd, dim=-1), S0=torch.sum(M2_lead, dim=-1),
-        nbin=int(nbin), sd_chan=w * sd)
+            tl = tuple(tallies or [None] * len(devices))
+            Gr, Gi, M2 = (stats.ChanSlabs(tuple(p), tl) for p in (
+                [o[0] for o in outs], [o[1] for o in outs], M2s))
+            # the per-channel sums of M2 on the lead, from its own copy of
+            # the template: a card's reduction order depends on the shape, so
+            # sums over slabs would not be the single-device fit's bits
+            M2_lead = mr * mr + mi * mi
+        if seed_phase:
+            # the band's seed sums, added over the slabs in channel order
+            gsr, gsi = (functools.reduce(torch.add,
+                                         [o[j].to(dev) for o in outs])
+                        for j in (3, 4))
+    with annotate("pp:fit.seed"):
+        init = as_t(init_params).clone()
+        if seed_phase and ff[1]:
+            kvec = torch.arange(nh, dtype=dtype, device=dev)
+            wcurv = w * torch.sum(M2_lead * kvec * kvec, dim=-1)
+            beta = freqs ** -2.0 - (nu_fits[:, 0] ** -2.0)[:, None]
+            kdm = DCONST / Ps
+            phi0, dm0 = _seed_phi_dm(gsr, gsi, wcurv, beta, kdm)
+            init[:, 0] = phi0
+            init[:, 1] = dm0
+        elif seed_phase:
+            init[:, 0] = _brute_phase_seed(gsr[:, 0], gsi[:, 0])
+        setup = stats.FitSetup(
+            Gr=Gr, Gi=Gi, M2=M2, w=w, freqs=freqs, P=Ps,
+            nu_DM=nu_fits[:, 0], nu_GM=nu_fits[:, 1], nu_tau=nu_fits[:, 2],
+            Sd=torch.sum(w * sd, dim=-1), S0=torch.sum(M2_lead, dim=-1),
+            nbin=int(nbin), sd_chan=w * sd)
 
     def fgh(xp):
         return stats.chi2_value_grad_hess(xp, setup, fit_flags=ff,
                                           log10_tau=log10_tau,
                                           scattering=scattering)
 
-    res = newton.trust_region_minimize(fgh, init, max_iter=max_iter,
-                                       gtol=1e-11, xtol=1e-14, has_aux=True,
-                                       step_mask=ff)
+    with annotate("pp:fit.newton"):
+        res = newton.trust_region_minimize(
+            fgh, init, max_iter=max_iter, gtol=1e-11, xtol=1e-14,
+            has_aux=True, step_mask=ff)
     x, moments, fun = res.x, res.aux, res.fun
-    nu_out_DM, nu_out_GM, nu_out_tau = nu_zeros.get_nu_zeros(
-        setup, ff, moments, params=x, log10_tau=log10_tau, option=option)
-    if nu_outs is not None:
-        nu_out_DM, nu_out_GM, nu_out_tau = (
-            zero if user is None else as_t(user).expand(B)
-            for user, zero in zip(nu_outs, (nu_out_DM, nu_out_GM,
-                                            nu_out_tau)))
-    if is_toa and ff[1]:
-        nu_out_GM = nu_out_DM
-    elif is_toa and ff[2]:
-        nu_out_DM = nu_out_GM
-    params_out = _rereference(x, setup, nu_out_DM, nu_out_GM,
-                              nu_out_tau, log10_tau)
-    setup_out = setup._replace(nu_DM=nu_out_DM, nu_GM=nu_out_GM,
-                               nu_tau=nu_out_tau)
-    (cov, perrs, scl, scl_errs, channel_snrs, snr, chi2, red_chi2,
-     ch_rchi2) = _finalize(params_out, setup_out, ff, fun, moments,
-                           log10_tau)
-    return PortraitFitResult(
-        params=params_out, param_errs=perrs, scales=scl,
-        scale_errs=scl_errs, nu_DM=nu_out_DM, nu_GM=nu_out_GM,
-        nu_tau=nu_out_tau, covariance_matrix=cov, chi2=chi2,
-        red_chi2=red_chi2, snr=snr, channel_snrs=channel_snrs,
-        niter=res.niter, nfeval=res.nfev, return_code=res.status,
-        channel_red_chi2=ch_rchi2), setup, res
+    with annotate("pp:fit.nu_zeros"):
+        nu_out_DM, nu_out_GM, nu_out_tau = nu_zeros.get_nu_zeros(
+            setup, ff, moments, params=x, log10_tau=log10_tau, option=option)
+        if nu_outs is not None:
+            nu_out_DM, nu_out_GM, nu_out_tau = (
+                zero if user is None else as_t(user).expand(B)
+                for user, zero in zip(nu_outs, (nu_out_DM, nu_out_GM,
+                                                nu_out_tau)))
+        if is_toa and ff[1]:
+            nu_out_GM = nu_out_DM
+        elif is_toa and ff[2]:
+            nu_out_DM = nu_out_GM
+    with annotate("pp:fit.finalize"):
+        params_out = _rereference(x, setup, nu_out_DM, nu_out_GM,
+                                  nu_out_tau, log10_tau)
+        setup_out = setup._replace(nu_DM=nu_out_DM, nu_GM=nu_out_GM,
+                                   nu_tau=nu_out_tau)
+        (cov, perrs, scl, scl_errs, channel_snrs, snr, chi2, red_chi2,
+         ch_rchi2) = _finalize(params_out, setup_out, ff, fun, moments,
+                               log10_tau)
+        result = PortraitFitResult(
+            params=params_out, param_errs=perrs, scales=scl,
+            scale_errs=scl_errs, nu_DM=nu_out_DM, nu_GM=nu_out_GM,
+            nu_tau=nu_out_tau, covariance_matrix=cov, chi2=chi2,
+            red_chi2=red_chi2, snr=snr, channel_snrs=channel_snrs,
+            niter=res.niter, nfeval=res.nfev, return_code=res.status,
+            channel_red_chi2=ch_rchi2)
+    return result, setup, res
 
 
 def _sync(dev):
@@ -607,32 +623,35 @@ def pack_result(res):
     fields are small counts, exact either way.  Inverse: unpack_result."""
     B = res.params.shape[0]
     dt = res.params.dtype
-    return torch.cat([leaf.reshape(B, -1).to(dt) for leaf in res], dim=1)
+    with annotate("pp:fit.pack"):
+        return torch.cat([leaf.reshape(B, -1).to(dt) for leaf in res],
+                         dim=1)
 
 
 def unpack_result(arr, nchan):
     """A host PortraitFitResult (numpy fields, batch leading) from
     pack_result's (B, K) array (a tensor anywhere, or numpy)."""
-    if torch.is_tensor(arr):
-        arr = arr.detach().cpu().numpy()
-    arr = np.asarray(arr)
-    B = arr.shape[0]
-    leaves, off = [], 0
-    for i, sz in enumerate(_PACK_SIZES):
-        n = nchan if sz is None else sz
-        leaf = arr[:, off:off + n]
-        off += n
-        if n == 1:
-            leaf = leaf[:, 0]
-        elif sz == 25:
-            leaf = leaf.reshape(B, 5, 5)
-        if i in _PACK_INT:
-            leaf = leaf.astype(np.int32)
-        leaves.append(leaf)
-    if off != arr.shape[1]:
-        raise ValueError(f"packed width {arr.shape[1]} is not that of "
-                         f"{nchan} channels ({off})")
-    return PortraitFitResult(*leaves)
+    with annotate("pp:fit.unpack"):
+        if torch.is_tensor(arr):
+            arr = arr.detach().cpu().numpy()
+        arr = np.asarray(arr)
+        B = arr.shape[0]
+        leaves, off = [], 0
+        for i, sz in enumerate(_PACK_SIZES):
+            n = nchan if sz is None else sz
+            leaf = arr[:, off:off + n]
+            off += n
+            if n == 1:
+                leaf = leaf[:, 0]
+            elif sz == 25:
+                leaf = leaf.reshape(B, 5, 5)
+            if i in _PACK_INT:
+                leaf = leaf.astype(np.int32)
+            leaves.append(leaf)
+        if off != arr.shape[1]:
+            raise ValueError(f"packed width {arr.shape[1]} is not that of "
+                             f"{nchan} channels ({off})")
+        return PortraitFitResult(*leaves)
 
 
 def fit_portrait_full_batch_packed(*args, **kwargs):

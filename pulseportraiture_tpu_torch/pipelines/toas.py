@@ -64,6 +64,7 @@ from pulseportraiture_tpu_torch.ops.setup_dft import (band_cap_model_ft,
                                                       cap_nharm)
 from pulseportraiture_tpu_torch.parallel.mesh import \
     fit_portrait_full_sharded
+from pulseportraiture_tpu_torch.profiling import annotate
 
 _MAX_CHUNK = 64
 _MAX_TEMPLATES = 8     # cached template evaluations kept at once
@@ -459,40 +460,52 @@ class GetTOAs:
             """One batched fit.  batch=False is the per-subint route: the
             caller's phase start, the user's output references, and an
             unfitted tau kept in the model when fit_scat."""
-            t0 = time.time()
-            entry = items[0][1]["entry"]
-            x = torch.from_numpy(np.stack([p.pop("port") for _, p in items]))
-            scales = None
-            if items[0][1]["scale"] is not None:
-                scales = torch.from_numpy(np.stack(
-                    [p.pop("scale") for _, p in items]).astype(np.float32))
-            ops = (np.stack([p["init"] for _, p in items]),
-                   np.array([p["P"] for _, p in items]),
-                   np.stack([p["freqs"] for _, p in items]),
-                   np.stack([p["errs"] for _, p in items]))
-            nu_fits_b = np.array([[p["nu_fit"]] * 3 for _, p in items])
-            if mesh is not None and batch:
-                # host operands: each shard's slabs go to their devices
-                packed = fit_portrait_full_sharded(
-                    mesh, x, self._template_on(entry, mesh.device_list),
-                    *ops, nu_fits=nu_fits_b, fit_flags=flags,
-                    log10_tau=log10_tau, scales=scales, dtype=self.dtype,
-                    seed_phase=True, packed=True)
-            else:
-                packed = fit_portrait_full_batch_packed(
-                    x.to(self.device),
-                    self._template_on(entry, [self.device])[self.device],
-                    *map(dev, ops), nu_fits=dev(nu_fits_b),
-                    fit_flags=flags, log10_tau=log10_tau,
-                    scales=None if scales is None else scales.to(self.device),
-                    dtype=self.dtype, seed_phase=batch,
-                    nu_outs=None if batch else nu_outs_of(items),
-                    scattering=None if batch else bool(fit_scat))
-            # one transfer per chunk (per batch shard on a mesh): the
-            # result packed on the device
-            host = unpack_result(packed, x.shape[1])
-            dur = (time.time() - t0) / len(items)
-            timing["fit_s"] += time.time() - t0
+            with annotate("pp:toas.fit"):
+                t0 = time.time()
+                entry = items[0][1]["entry"]
+                sharded = mesh is not None and batch
+                with annotate("pp:toas.to_card"):
+                    x = torch.from_numpy(
+                        np.stack([p.pop("port") for _, p in items]))
+                    scales = None
+                    if items[0][1]["scale"] is not None:
+                        scales = torch.from_numpy(np.stack(
+                            [p.pop("scale") for _, p in items]).astype(
+                                np.float32))
+                    ops = (np.stack([p["init"] for _, p in items]),
+                           np.array([p["P"] for _, p in items]),
+                           np.stack([p["freqs"] for _, p in items]),
+                           np.stack([p["errs"] for _, p in items]))
+                    nu_fits_b = np.array([[p["nu_fit"]] * 3
+                                          for _, p in items])
+                    if not sharded:
+                        # a mesh takes the host operands: each shard's
+                        # slabs go to their own devices
+                        xd = x.to(self.device)
+                        mft = self._template_on(
+                            entry, [self.device])[self.device]
+                        ops = tuple(map(dev, ops))
+                        nu_fits_b = dev(nu_fits_b)
+                        if scales is not None:
+                            scales = scales.to(self.device)
+                if sharded:
+                    packed = fit_portrait_full_sharded(
+                        mesh, x, self._template_on(entry, mesh.device_list),
+                        *ops, nu_fits=nu_fits_b, fit_flags=flags,
+                        log10_tau=log10_tau, scales=scales, dtype=self.dtype,
+                        seed_phase=True, packed=True)
+                else:
+                    packed = fit_portrait_full_batch_packed(
+                        xd, mft, *ops, nu_fits=nu_fits_b, fit_flags=flags,
+                        log10_tau=log10_tau, scales=scales,
+                        dtype=self.dtype, seed_phase=batch,
+                        nu_outs=None if batch else nu_outs_of(items),
+                        scattering=None if batch else bool(fit_scat))
+                # one transfer per chunk (per batch shard on a mesh): the
+                # result packed on the device
+                host = unpack_result(packed, x.shape[1])
+                dur = (time.time() - t0) / len(items)
+                timing["fit_s"] += time.time() - t0
             timing["batched_chunks"] += int(batch)
             for i, (iarch, p) in enumerate(items):
                 results[(iarch, p["isub"])] = (
@@ -534,11 +547,12 @@ class GetTOAs:
                        for p in job["preps"]):
                     return
                 fit_fallback(next_assemble, job)
-                self._assemble_archive(job, results, next_assemble, bary,
-                                       fit_DM, fit_GM, fit_scat, fix_alpha,
-                                       print_phase, print_flux,
-                                       print_parangle, addtnl_toa_flags,
-                                       timing, nu_refs is not None)
+                with annotate("pp:toas.assemble"):
+                    self._assemble_archive(
+                        job, results, next_assemble, bary, fit_DM, fit_GM,
+                        fit_scat, fix_alpha, print_phase, print_flux,
+                        print_parangle, addtnl_toa_flags, timing,
+                        nu_refs is not None)
                 if show_plot:
                     for isub in self.ok_isubs[-1]:
                         self.show_fit(datafile=job["df"], isub=isub,
@@ -549,7 +563,8 @@ class GetTOAs:
                 next_assemble += 1
 
         for idf, df in enumerate(datafiles):
-            job = prep_archive(idf, df)
+            with annotate("pp:toas.load"):
+                job = prep_archive(idf, df)
             if job is None:
                 continue
             self.ok_idatafiles.append(idf)

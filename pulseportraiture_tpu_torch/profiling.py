@@ -6,6 +6,9 @@ fitter here records the same `duration` and `nfeval` bookkeeping, and
 this module adds the device layer: a torch.profiler trace of the host and
 the card (CUPTI records the ctypes-launched hand kernels as it records
 torch's own), written as a Chrome/Perfetto trace, plus a section timer.
+The batched fit and get_TOAs mark their phases with `annotate` ("pp:"
+ranges, README's profiling section), which records only while a
+profiler does.
 
 Usage:
     from pulseportraiture_tpu_torch.profiling import annotate, timed, trace
@@ -24,6 +27,8 @@ import contextlib
 import os
 import time
 
+import torch
+
 
 @contextlib.contextmanager
 def trace(log_dir=None, create_perfetto_link=False):
@@ -38,7 +43,6 @@ def trace(log_dir=None, create_perfetto_link=False):
     if not log_dir:
         yield None
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -58,7 +62,6 @@ def trace(log_dir=None, create_perfetto_link=False):
 
 def _sync_cuda():
     """Wait for the work queued on every card in use."""
-    import torch
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         for i in range(torch.cuda.device_count()):
             torch.cuda.synchronize(i)
@@ -82,11 +85,21 @@ def timed(label, quiet=False, results=None):
             print(f"[pp] {label}: {dt:.3f} s")
 
 
-@contextlib.contextmanager
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name):
-    """A named range in a trace: torch.profiler.record_function, and an
-    NVTX range where a card is visible."""
-    import torch
+    """A named range in a trace while a torch profiler records on this
+    thread: torch.profiler.record_function, and an NVTX range where a
+    card is visible.  Otherwise the one shared null context, so a span
+    left in a hot loop costs a check, and nothing reaches NVTX."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _recorded(name)
+
+
+@contextlib.contextmanager
+def _recorded(name):
     nvtx = torch.cuda.is_available()
     if nvtx:
         torch.cuda.nvtx.range_push(name)
