@@ -138,6 +138,11 @@ parallel), then:
      moments kernels, the setup shards x chunks times; with more than one
      card visible also make_mesh() over the cards (one card: a line says
      the multi-card run did not happen).
+ 19. the trust-region subproblem (phase_tr_solve, after phase 8):
+     csrc/tr_solve.cu at B=64, n=5 in float32 (with the hard case) and
+     float64 against tr_solve_reference in float64 on the CPU, timed by
+     CUDA events beside the eager path's wall (tr_solve_reference on the
+     card); the batched fits (phase 4) must launch it.
 ptxas's registers and spills are printed for every kernel; a spill in the
 setup FFT, the setup epilogue or the scattering kernel fails the run.
 Launch counts are reset before each pipeline run (the main paths) and
@@ -984,6 +989,7 @@ def phase_fit(dev, nbin=NBIN, nc=8, B=64):
         fit_portrait_full_batch
     from pulseportraiture_tpu_torch.ops import moments as mom
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
+    from pulseportraiture_tpu_torch.ops import tr_solve as trs
     from pulseportraiture_tpu_torch.ops.transform import phase_transform
 
     data, freqs, model, phis, dms, nu_fit = phidm_recipe(dev, B, nbin=nbin)
@@ -997,6 +1003,7 @@ def phase_fit(dev, nbin=NBIN, nc=8, B=64):
 
     out = {}
     sd0, mm0 = sdft.fused_setup.launches, mom.phase_moments.launches
+    ts0 = trs.tr_solve.launches
     route = sdft.setup_route(nbin)
     r0 = sdft.fused_setup.routes[route]
     for name, mft_ri in routes.items():
@@ -1053,9 +1060,10 @@ def phase_fit(dev, nbin=NBIN, nc=8, B=64):
         out[name] = dict(fits_per_s=B / sec, sec_per_batch=sec,
                          mean_niter=mean_niter, twin_sigma=agree)
     launches = (sdft.fused_setup.launches - sd0,
-                mom.phase_moments.launches - mm0)
+                mom.phase_moments.launches - mm0,
+                trs.tr_solve.launches - ts0)
     log(f"batched-fit phase{at} launches: fused_setup {launches[0]}, "
-        f"phase_moments {launches[1]}")
+        f"phase_moments {launches[1]}, tr_solve {launches[2]}")
     if min(launches) <= 0:
         raise AssertionError("a kernel did not launch in the fit phase")
     if sdft.fused_setup.routes[route] - r0 != launches[0]:
@@ -1245,11 +1253,13 @@ def write_archives(rng, nsub=8, t_scat=0.0, tag="epoch", narch=2,
 def reset_launches():
     from pulseportraiture_tpu_torch.ops import moments as mom
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
+    from pulseportraiture_tpu_torch.ops import tr_solve as trs
     sdft.fused_setup.launches = 0
     sdft.fused_setup.routes = {"fft": 0, "rfft": 0}
     mom.phase_moments.launches = 0
     mom.scattering_moments.launches = 0
     mom.phase_moments_merged.launches = 0
+    trs.tr_solve.launches = 0
 
 
 def read_launches(nbin=NBIN):
@@ -1257,11 +1267,13 @@ def read_launches(nbin=NBIN):
     the path that made them (the route check reads setup_route(nbin))."""
     from pulseportraiture_tpu_torch.ops import moments as mom
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
+    from pulseportraiture_tpu_torch.ops import tr_solve as trs
     return {"nbin": nbin, "fused_setup": sdft.fused_setup.launches,
             "fused_setup_routes": dict(sdft.fused_setup.routes),
             "phase_moments": mom.phase_moments.launches,
             "scattering_moments": mom.scattering_moments.launches,
-            "phase_moments_merged": mom.phase_moments_merged.launches}
+            "phase_moments_merged": mom.phase_moments_merged.launches,
+            "tr_solve": trs.tr_solve.launches}
 
 
 def phase_pipeline(rng, nbin=NBIN, narch=2):
@@ -1533,6 +1545,94 @@ def phase_merged_kernel(dev):
                          max_abs_err_all=errs, bitwise_equal_split=bitwise,
                          rows=rows, nh=nh)
         del g, Gr, Gi
+    return rec
+
+
+def tr_solve_inputs(dev, dtype, B=64, seed=6):
+    """B subproblems shaped like the (phi, DM, tau, alpha) fit's, n = 5
+    with the GM row and column an identity and g 0 there: the fitted
+    block's curvatures a scale 10^U(-3, 13) times eigenvalues log-uniform
+    in [1e-3, 1], every fourth item's lowest eigenvalue negative; radii
+    log-uniform in [1e-3, 1e4] (interior and boundary steps)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    g = np.zeros((B, 5))
+    H = np.zeros((B, 5, 5))
+    fit = [0, 1, 3, 4]
+    for b in range(B):
+        Q = np.linalg.qr(rng.normal(size=(4, 4)))[0]
+        lam = 10.0 ** rng.uniform(-3.0, 0.0, 4)
+        if b % 4 == 3:
+            lam[0] = -lam[0]
+        scale = 10.0 ** rng.uniform(-3.0, 13.0)
+        H[b][np.ix_(fit, fit)] = scale * (Q * lam) @ Q.T
+        H[b, 2, 2] = 1.0
+        g[b, fit] = scale * (Q @ rng.normal(size=4))
+    r = 10.0 ** rng.uniform(-3.0, 4.0, B)
+    return [torch.as_tensor(a, dtype=dtype, device=dev) for a in (g, H, r)]
+
+
+def phase_tr_solve(dev):
+    """The trust-region subproblem kernel (csrc/tr_solve.cu) against
+    tr_solve_reference in float64 on the CPU, B = 64, n = 5, float32 with
+    the hard case (what a float32 fit's Newton loop runs) and float64
+    without it (a float64 fit's): |p - p_ref| within 2.5e-7 / 1e-9 of
+    |p_ref| (p rounded to float32; two eigensolvers' rounding at
+    condition <= 1e3), 2e-6 for the hard case's indefinite items (a
+    boundary step that rounds short of the radius gets sqrt(2 delta) of
+    it along v0), the GM component left out (the loop's step_mask pins
+    it), and hit the same.  Timed by CUDA events beside the wall of
+    the eager path it replaced (tr_solve_reference on the card: ~676
+    launches and eigh's host sync), the yardstick."""
+    import torch
+
+    from pulseportraiture_tpu_torch.ops import tr_solve as trs
+
+    rec = {}
+    for dtype, hard, tol in ((torch.float32, True, 2.5e-7),
+                             (torch.float64, False, 1e-9)):
+        g, H, r = tr_solve_inputs(dev, dtype)
+        n0 = trs.tr_solve.launches
+        p, hit = trs.tr_solve(g, H, r, hard_case=hard)
+        torch.cuda.synchronize()
+        if trs.tr_solve.launches != n0 + 1:
+            raise AssertionError("tr_solve: not one launch")
+        want, want_hit = trs.tr_solve_reference(
+            *(a.cpu().double() for a in (g, H, r)), hard_case=hard)
+        want = want.to(dtype).double()
+        keep = torch.tensor([1.0, 1.0, 0.0, 1.0, 1.0], dtype=torch.float64)
+        d = ((p.cpu().double() - want) * keep).norm(dim=-1)
+        gap = d / (want * keep).norm(dim=-1)
+        bound = torch.full_like(gap, tol)
+        if hard:
+            bound[3::4] = 2e-6
+        rel = float(gap.max())
+        if not torch.equal(hit.cpu(), want_hit) or bool((gap > bound).any()):
+            raise AssertionError(f"tr_solve[{dtype}]: hit "
+                                 f"{hit.cpu().tolist()} vs "
+                                 f"{want_hit.tolist()}, |p - p_ref| / "
+                                 f"|p_ref| {gap.tolist()} (bound {tol}, "
+                                 "2e-6 where indefinite)")
+        ms = cuda_ms(lambda: trs.tr_solve(g, H, r, hard_case=hard), reps=50)
+        trs.tr_solve_reference(g, H, r, hard_case=hard)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            trs.tr_solve_reference(g, H, r, hard_case=hard)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        eager = statistics.median(walls)
+        name = str(dtype).split(".")[-1]
+        log(f"tr_solve[{name}] B=64 n=5 hard_case={hard}: |p - p_ref| / "
+            f"|p_ref| <= {rel:.3e}, {int(hit.sum())} boundary "
+            f"steps; kernel {ms:.4f} ms (CUDA events), eager path "
+            f"{eager:.3f} ms (wall, median of 10)")
+        rec[name] = dict(max_abs_err=rel, ms=ms, plain_ms=eager,
+                         eager_wall_ms=eager, bound_ms=None,
+                         bound_by="latency", hard_case=hard,
+                         boundary_steps=int(hit.sum()))
     return rec
 
 
@@ -2529,6 +2629,8 @@ def main():
     lap("scat_kernel")
     mrec = phase_merged_kernel(dev)
     lap("merged_kernel")
+    trec = phase_tr_solve(dev)
+    lap("tr_solve")
     wrec = phase_kernels_wide(dev)
     lap("kernels_nh8193")
     fits = phase_fit(dev)
@@ -2651,7 +2753,9 @@ def main():
         entry("phase_moments_merged",
               "pulseportraiture_tpu_torch/csrc/moments_merged.cu",
               "scripts/tpu_moments_layout.py:138", [], mrec["subint"],
-              {"probe": mrec["probe"]})],
+              {"probe": mrec["probe"]}),
+        entry("tr_solve", "pulseportraiture_tpu_torch/csrc/tr_solve.cu",
+              None, [], trec["float32"], {"float64": trec["float64"]})],
         "fits": fits, "fits_1536": fits_1536, "fits_8192": fits_8192,
         "fits_64": fits_64, "fits_16384": fits_16384,
         "fits_4608": fits_4608, "pow2_widths": prec,

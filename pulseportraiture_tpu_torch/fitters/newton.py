@@ -11,8 +11,11 @@ a "pp:newton.iter" range holding its objective ("pp:newton.fgh") and
 its two subproblem solves ("pp:newton.solve"); the first objective is a
 "pp:newton.fgh" of its own (profiling.annotate).
 
-The subproblem is solved exactly (Moré–Sorensen on the <=5x5 Hessian via
-batched torch.linalg.eigh).  Carried over unchanged: the f32 acceptance
+The subproblem is solved exactly (Moré–Sorensen on the <=5x5 Hessian,
+ops.tr_solve): on the card one hand-written kernel a solve
+(csrc/tr_solve.cu: cyclic Jacobi and the secular iteration in float64,
+one thread an item), on the CPU its plain twin (batched
+torch.linalg.eigh).  Carried over unchanged: the f32 acceptance
 floor 8 eps |f|, the radius shrink on a non-finite trial, the speculative
 final step bounded by the last verified step length, the step_mask
 projection and the status codes.
@@ -54,6 +57,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from pulseportraiture_tpu_torch.ops.tr_solve import _mv, tr_solve
 from pulseportraiture_tpu_torch.profiling import annotate
 
 DEC_TOL = 1e-6
@@ -79,67 +83,8 @@ class NewtonResult(NamedTuple):
     aux: object = None    # fgh aux at x (has_aux=True only)
 
 
-def _mv(A, v):
-    return (A @ v[..., None])[..., 0]
-
-
-def _tr_solve(g, H, radius, hard_case=False):
-    """Exact trust-region step: argmin g.p + 0.5 p H p, |p| <= radius.
-
-    Batched over leading axes.  Solved in float64 whatever the working
-    dtype, on a scale-normalized copy (H/s, g/s with s = max|H|): same
-    minimizer, and the secular iteration stays conditioned for
-    objectives whose curvatures reach ~1e13.  (A float32 eigh resolves
-    eigenvalues only to ~1e-7 of the largest: the fits' weakest
-    directions, alpha and tau, lie below that, and their steps come out
-    several times too short.)
-    """
-    dtype = g.dtype
-    g, H, radius = g.double(), H.double(), radius.double()
-    one = torch.ones((), dtype=H.dtype, device=H.device)
-    s = torch.maximum(torch.amax(torch.abs(H), dim=(-2, -1)), one)
-    g = g / s[..., None]
-    H = H / s[..., None, None]
-    lam, V = torch.linalg.eigh(H)
-    gt = _mv(V.transpose(-1, -2), g)
-    lam_min = lam[..., 0]
-    eps = 10.0 * torch.finfo(g.dtype).eps
-    zero = torch.zeros_like(lam_min)
-
-    def p_of(mu):
-        return gt / (lam + mu[..., None])
-
-    def norm_of(mu):
-        return torch.sqrt(torch.sum(p_of(mu) ** 2, dim=-1) + eps * eps)
-
-    floor = torch.maximum(zero, -lam_min) + eps
-    interior_ok = (lam_min > 0.0) & (norm_of(zero) <= radius)
-    mu = floor + 1.0
-    for _ in range(25):
-        pn = norm_of(mu)
-        phi = 1.0 / pn - 1.0 / radius
-        dphi = torch.sum(gt ** 2 / (lam + mu[..., None]) ** 3,
-                         dim=-1) / pn ** 3
-        step = phi / torch.where(dphi > 0.0, dphi, torch.ones_like(dphi))
-        mu = torch.maximum(mu - step, floor)
-    p_boundary = -_mv(V, p_of(mu))
-    pb_norm = torch.sqrt(torch.sum(p_boundary ** 2, dim=-1) + eps * eps)
-    p_boundary = p_boundary * torch.clamp(radius / pb_norm,
-                                          max=1.0)[..., None]
-    if hard_case:
-        # negative curvature that g barely sees: p(mu) at the floor stays
-        # inside the region, so the rest of the radius goes along the
-        # lowest eigenvector, downhill (Moré–Sorensen's hard case)
-        short = (lam_min < 0.0) & (pb_norm < radius)
-        v0 = V[..., :, 0]
-        sgn = torch.where(gt[..., 0] > 0.0, -1.0, 1.0)
-        t = torch.sqrt(torch.clamp(radius ** 2 - pb_norm ** 2, min=0.0))
-        p_boundary = torch.where(short[..., None],
-                                 p_boundary + (sgn * t)[..., None] * v0,
-                                 p_boundary)
-    p_interior = -_mv(V, p_of(zero))
-    p = torch.where(interior_ok[..., None], p_interior, p_boundary)
-    return p.to(dtype), ~interior_ok
+# the exact trust-region step and whether it is not interior (p, hit)
+_tr_solve = tr_solve
 
 
 def _newton_decrement(g, H, mask, floor_of=None):

@@ -9,7 +9,9 @@ Tolerances: the kernels compute in float32 and are held against the twin
 in float64 on the same (f32-exact) inputs.  The bound is stated relative
 to the largest magnitude in the output (or to the sum of magnitudes of
 the summed terms), with room for f32 rounding over nbin/nharm-term sums
-and different summation orders.
+and different summation orders.  The trust-region kernel computes in
+float64 and is held against its twin's LAPACK eigh relative to |p|
+(_tr_tolerance).
 """
 
 import numpy as np
@@ -751,3 +753,237 @@ def test_sharded_fit_on_one_card_matches_the_unsharded_fit(cuda):
         for shard, counts in m.launches.items():
             assert counts["fused_setup"] == n and \
                 counts["phase_moments"] > 0, (shard, counts)
+
+
+# the trust-region subproblem (csrc/tr_solve.cu) against its twin
+TR_KINDS = ("interior", "boundary", "indefinite", "hard", "masked")
+TR_SCALES = (1e-3, 1.0, 1e6, 1e13)
+
+
+def _tr_item(rng, n, kind, scale):
+    """One subproblem (g (n,), H (n, n), radius, k) in float64 numpy.
+    H = scale Q diag(lam) Q^T, |lam| log-uniform in [1e-3, 1] (condition
+    <= 1e3), g = scale Q u; radii log-uniform in [1e-14, 1e3], or above
+    the Newton step's length for "interior".  "hard": the lowest
+    eigenvalue's eigenvector is the axis k, decoupled from the rest, and
+    g[k] = 0 (gt[0] = 0, lam_min < 0), with radii past |p(floor)|, where
+    the hard case takes the rest of the radius along that axis; k is the
+    first or the last axis, which LAPACK's tridiagonal reduction keeps
+    decoupled to the bit, so the twin's gt[0] is 0 too (elsewhere it is
+    ~1e-16, and p(floor) carries gt[0] / eps of it along the axis).
+    "masked": axis k an identity row and column with g[k] = 0, as the
+    fits pin a parameter.  k is -1 for the other kinds."""
+    lam = 10.0 ** rng.uniform(-3.0, 0.0, n)
+    if kind == "indefinite":
+        lam = lam * rng.choice([-1.0, 1.0], n)
+        lam[0] = -abs(lam[0])
+    k = -1
+    if kind == "hard":
+        k = int(rng.choice([0, n - 1]))
+    elif kind == "masked":
+        k = int(rng.integers(n))
+    m = n - 1 if k >= 0 else n
+    Q = np.linalg.qr(rng.normal(size=(m, m)))[0] if m else np.eye(0)
+    sub = lam[:m]
+    A = (Q * sub) @ Q.T
+    u = rng.normal(size=m)
+    idx = [i for i in range(n) if i != k]
+    H = np.zeros((n, n))
+    H[np.ix_(idx, idx)] = scale * A
+    g = np.zeros(n)
+    g[idx] = scale * (Q @ u)
+    if kind == "hard":
+        H[k, k] = -scale * 10.0 ** rng.uniform(-3.0, 0.0)
+    elif kind == "masked":
+        H[k, k] = 1.0
+    if kind == "interior":
+        radius = np.linalg.norm(np.linalg.solve(H, g)) * \
+            10.0 ** rng.uniform(0.1, 3.0)
+    elif kind == "hard":
+        # |p(floor)|: the rest of the step at mu = -lam_min
+        pf = np.linalg.norm(u / (sub - H[k, k] / scale))
+        radius = max(pf, 1e-14) * 10.0 ** rng.uniform(0.1, 3.0)
+    else:
+        radius = 10.0 ** rng.uniform(-14.0, 3.0)
+        if kind == "boundary":
+            radius = min(radius, 0.5 * np.linalg.norm(np.linalg.solve(H, g)))
+    return g, H, radius, k
+
+
+def _tr_batch(rng, n, B, kinds=TR_KINDS):
+    """B subproblems cycling over kinds and TR_SCALES: (g, H, radius, k,
+    kind) arrays."""
+    items = [_tr_item(rng, n, kinds[i % len(kinds)],
+                      TR_SCALES[(i // len(kinds)) % len(TR_SCALES)])
+             for i in range(B)]
+    g, H, r, k = (np.array(a) for a in zip(*items))
+    kind = np.array([kinds[i % len(kinds)] for i in range(B)])
+    return g, H, r, k, kind
+
+
+def _tr_gaps(p, ref, k, kind):
+    """|p - ref| / |ref| per item (|p - ref| where ref is 0).  "masked":
+    without the pinned axis k, as the Newton loop's step_mask projects it
+    out (the twin's eigh leaves ~1e-16 of g in that direction, over an
+    eigenvalue down to 1e-13).  "hard": up to the sign of p[k], which
+    comes from the eigensolver's sign of v0 where gt[0] = 0."""
+    p = np.array(p, dtype=np.float64)
+    ref = np.array(ref, dtype=np.float64)
+    for i in np.flatnonzero(kind == "masked"):
+        p[i, k[i]] = ref[i, k[i]] = 0.0
+    d = np.linalg.norm(p - ref, axis=-1)
+    for i in np.flatnonzero(kind == "hard"):
+        q = ref[i].copy()
+        q[k[i]] = -q[k[i]]
+        d[i] = min(d[i], np.linalg.norm(p[i] - q))
+    nref = np.linalg.norm(ref, axis=-1)
+    return np.where(nref > 0.0, d / np.where(nref > 0.0, nref, 1.0), d)
+
+
+def _tr_tolerance(dtype, hard_case, kind):
+    """The bound on _tr_gaps.  float64: 1e-9 (the twin's LAPACK eigh and
+    the kernel's Jacobi round differently; at condition <= 1e3, and with
+    a pinned eigenvalue down to 1e-13, the steps differed by <= 2e-11 in
+    the CPU rehearsal of the kernel's source).  float32: 2.5e-7, p rounded
+    to float32 on both sides, a few ulps.  With hard_case on an indefinite
+    H: 2e-6, as the hard case is ill-conditioned there: a boundary step
+    whose norm rounds below the radius (by delta r) gets the rest of it,
+    sqrt(2 delta) r, along v0; delta up to 1e-12 of the secular
+    iteration's rounding (rehearsal: <= 1.3e-7)."""
+    if hard_case and kind == "indefinite":
+        return 2e-6
+    return 1e-9 if dtype == torch.float64 else 2.5e-7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hard_case", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 5])
+def test_tr_solve_kernel_matches_twin(cuda, n, dtype, hard_case):
+    """csrc/tr_solve.cu against tr_solve_reference (on the CPU: LAPACK's
+    eigh) on interior, boundary, indefinite, hard-case and pinned
+    subproblems, curvatures 1e-3..1e13, radii 1e-14..1e3; B = 64 in one
+    launch and B = 1 of each kind.  hit must agree exactly; p within
+    _tr_tolerance of the twin's |p|."""
+    from pulseportraiture_tpu_torch.ops import tr_solve as trs
+    rng = np.random.default_rng(1000 * n + 10 * hard_case +
+                                (dtype == torch.float64))
+    calls = [_tr_batch(rng, n, 64)] + [_tr_batch(rng, n, 1, kinds=(kind,))
+                                       for kind in TR_KINDS]
+    for g, H, r, k, kind in calls:
+        t = [torch.as_tensor(a, dtype=dtype) for a in (g, H, r)]
+        n0 = trs.tr_solve.launches
+        p, hit = trs.tr_solve(*[a.to(cuda) for a in t], hard_case=hard_case)
+        torch.cuda.synchronize()
+        assert trs.tr_solve.launches == n0 + 1
+        assert p.dtype == dtype and p.shape == t[0].shape
+        want, want_hit = trs.tr_solve_reference(*t, hard_case=hard_case)
+        assert torch.equal(hit.cpu(), want_hit), (kind, hit, want_hit)
+        gaps = _tr_gaps(p.cpu(), want, k, kind)
+        tol = np.array([_tr_tolerance(dtype, hard_case, c) for c in kind])
+        assert np.all(gaps <= tol), [(c, e) for c, e, b in
+                                     zip(kind, gaps, tol) if e > b]
+
+
+@pytest.mark.cuda
+def test_tr_solve_kernel_reads_strided_views(cuda):
+    """The kernel reads g, H and radius through their strides (no copy,
+    one launch): views of wider buffers, a transposed H and one radius
+    expanded over the items give the bits of the contiguous inputs."""
+    from pulseportraiture_tpu_torch.ops import tr_solve as trs
+    g, H, r, _, _ = _tr_batch(np.random.default_rng(7), 5, 64)
+    t = [torch.as_tensor(a, dtype=torch.float32, device=cuda)
+         for a in (g, H, r)]
+    gw = torch.zeros((64, 10), dtype=torch.float32, device=cuda)
+    gw[:, ::2] = t[0]
+    Hw = t[1].transpose(-1, -2).contiguous().transpose(-1, -2)
+    rw = torch.stack([t[2], t[2]], dim=-1)[:, 1]
+    assert not (gw[:, ::2].is_contiguous() or Hw.is_contiguous() or
+                rw.is_contiguous())
+    for hard in (False, True):
+        want = trs.tr_solve(*t, hard_case=hard)
+        n0 = trs.tr_solve.launches
+        got = trs.tr_solve(gw[:, ::2], Hw, rw, hard_case=hard)
+        assert trs.tr_solve.launches == n0 + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        one = torch.full((1,), 0.5, dtype=torch.float32, device=cuda)
+        assert torch.equal(trs.tr_solve(*t[:2], one.expand(64),
+                                        hard_case=hard)[0],
+                           trs.tr_solve(*t[:2], one.repeat(64),
+                                        hard_case=hard)[0])
+
+
+@pytest.mark.cuda
+def test_tr_solve_wrapper_refuses_what_it_does_not_take(cuda):
+    from pulseportraiture_tpu_torch.ops import tr_solve as trs
+    n0 = trs.tr_solve.launches
+    g = torch.zeros((4, 9), device=cuda)
+    with pytest.raises(ValueError, match="n=9"):
+        trs.tr_solve(g, torch.zeros((4, 9, 9), device=cuda),
+                     torch.ones(4, device=cuda))
+    g = torch.zeros((4, 5), device=cuda)
+    with pytest.raises(TypeError):
+        trs.tr_solve(g, torch.zeros((4, 5, 5), device=cuda).double(),
+                     torch.ones(4, device=cuda))
+    with pytest.raises(TypeError):
+        trs.tr_solve(g.half(), torch.zeros((4, 5, 5), device=cuda).half(),
+                     torch.ones(4, device=cuda).half())
+    with pytest.raises(ValueError):          # radius of another shape
+        trs.tr_solve(g, torch.zeros((4, 5, 5), device=cuda),
+                     torch.ones(3, device=cuda))
+    with pytest.raises(ValueError):          # on another device
+        trs.tr_solve(g, torch.zeros((4, 5, 5)), torch.ones(4, device=cuda))
+    assert trs.tr_solve.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fit_flags", [(1, 1, 0, 0, 0), (1, 1, 0, 1, 1)])
+def test_newton_loop_solves_through_the_kernel(cuda, fit_flags):
+    """A (phi, DM) fit and a fit_scat fit on the card, float32: two
+    tr_solve launches a traced Newton iteration (pp:newton.iter), and
+    the answers within 1e-2 sigma of the float64 CPU fit, as the other
+    card fits are held."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pulseportraiture_tpu_torch.fitters.portrait import (
+        fit_portrait_full_batch, template_spectrum)
+    from pulseportraiture_tpu_torch.ops import tr_solve as trs
+    rng = np.random.default_rng(11)
+    B, nchan, nbin, P, noise, tau = 4, 128, 512, 0.003, 0.1, 8e-3
+    scat = bool(fit_flags[3])
+    model, _ = _portrait(rng, 1, nchan, nbin)
+    freqs = np.linspace(1100.0, 1900.0, nchan)
+    nu_fit = freqs.mean()
+    k = 2j * np.pi * np.arange(nbin // 2 + 1)
+    mf = np.fft.rfft(model, axis=-1)
+    if scat:
+        mf = mf / (1.0 + k * (tau * (freqs / nu_fit) ** -4.0)[:, None])
+    data = np.fft.irfft(mf * np.exp(-k * rng.uniform(-0.01, 0.01,
+                                                       (B, 1, 1))),
+                        n=nbin, axis=-1)
+    data = (data + rng.normal(0, noise, data.shape)).astype(np.float32)
+    init = np.zeros((B, 5))
+    if scat:
+        init[:, 3], init[:, 4] = np.log10(4e-3), -4.0
+    mr, mi = template_spectrum(model)
+    out = {}
+    for dev, dt in ((cuda, torch.float32), (torch.device("cpu"),
+                                            torch.float64)):
+        def t(a):
+            return torch.as_tensor(a, dtype=dt, device=dev)
+        n0 = trs.tr_solve.launches
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out[dev.type] = fit_portrait_full_batch(
+                torch.from_numpy(data).to(dev), (mr, mi), t(init),
+                t(np.full(B, P)), t(freqs), t(np.full((B, nchan), noise)),
+                nu_fits=t(np.full((B, 3), nu_fit)), fit_flags=fit_flags,
+                dtype=dt)
+        iters = sum(e.name == "pp:newton.iter" for e in prof.events())
+        assert iters == int(out[dev.type].niter.max()) > 0
+        assert trs.tr_solve.launches - n0 == (2 * iters if dev.type == "cuda"
+                                              else 0)
+    g, c = out["cuda"], out["cpu"]
+    assert bool(g.return_code.lt(3).all())
+    for j in np.flatnonzero(fit_flags):
+        d = (g.params[:, j].double().cpu() - c.params[:, j]).abs()
+        assert bool((d <= 1e-2 * c.param_errs[:, j]).all()), (j, d)
