@@ -13,6 +13,7 @@ from pulseportraiture_tpu_torch.io.psrfits import (Archive, read_psrfits,
                                                    write_psrfits)
 from pulseportraiture_tpu_torch.io.telescopes import telescope_code
 from pulseportraiture_tpu_torch.ops.noise import get_noise_PS, get_SNR
+from pulseportraiture_tpu_torch.profiling import annotate
 from pulseportraiture_tpu_torch.utils import DataBunch, get_bin_centers
 
 
@@ -63,9 +64,21 @@ def load_data(filename, state=None, dedisperse=False, dededisperse=False,
 
     raw_i2/raw_scl (int16 samples + per-channel DAT_SCL) are kept when
     the file is i2-quantized and no transform rewrote the samples; the
-    per-channel offsets they drop only feed the DC harmonic.
+    per-channel offsets they drop only feed the DC harmonic.  Traced as
+    pp:load.read (read_psrfits: the file, its columns, the int16 decode)
+    and pp:load.prep (the rest: baseline, noise, S/N, geometry).
     """
-    arch = read_psrfits(filename)
+    with annotate("pp:load.read"):
+        arch = read_psrfits(filename)
+    with annotate("pp:load.prep"):
+        return _prepare(arch, filename, state, dedisperse, dededisperse,
+                        tscrunch, pscrunch, fscrunch, rm_baseline,
+                        flux_prof, return_arch, quiet)
+
+
+def _prepare(arch, filename, state, dedisperse, dededisperse, tscrunch,
+             pscrunch, fscrunch, rm_baseline, flux_prof, return_arch, quiet):
+    """load_data's DataBunch from the Archive read from filename."""
     raw_ok = arch.raw_i2 is not None and arch.npol == 1
     if state is not None and state != arch.state and state == "Intensity":
         arch.pscrunch()

@@ -303,14 +303,41 @@ class GetTOAs:
         sg = _DEFAULT_SCAT_GUESS if scat_guess is None else scat_guess
         f32 = self.dtype == torch.float32
         np_dtype = np.float32 if f32 else np.float64
+        # fit_subints: subints fitted; i2_subints: those of them that
+        # reached the fit as int16 samples and scales
         timing = {"load_s": 0.0, "fit_s": 0.0, "assemble_s": 0.0,
-                  "wall_s": 0.0, "batched_chunks": 0}
+                  "wall_s": 0.0, "batched_chunks": 0, "fit_subints": 0,
+                  "i2_subints": 0}
         self.fit_timing = timing
         start_all = time.time()
         model_cache = {}
         template_ids = itertools.count()
         jobs, results, buffers = [], {}, {}
         next_assemble = 0
+
+        def template_entry(data, freqs, P, DM0_arch):
+            """The template at a subint's grid as the fits take it:
+            evaluated, given the instrumental response when asked for,
+            dispersed by DM0 about the band's mean, its spectrum split
+            (and band-capped for float32 fits)."""
+            model = self.model_source.eval(data.phases, freqs, float(P),
+                                           unscat=fit_scat)
+            if add_instrumental_response and \
+                    (self.ird["DM"] or len(self.ird["wids"])):
+                irf = instrumental_response_port_FT(
+                    data.nbin, freqs, self.ird["DM"], float(P),
+                    self.ird["wids"], self.ird["irf_types"])
+                model = np.fft.irfft(
+                    irf * np.fft.rfft(model, axis=-1), n=data.nbin, axis=-1)
+            nu_anchor = float(freqs.mean())
+            # dispersion ADDED to the template once, host f64: the fit
+            # solves a small residual dDM around DM0
+            model_rot = np.asarray(rotate_portrait_np(
+                model, 0.0, -DM0_arch, float(P), freqs, nu_anchor), np_dtype)
+            mr, mi, mharm = _fit_spectrum(model_rot, data.nbin, f32)
+            return dict(key=next(template_ids), model=model_rot,
+                        nu_anchor=nu_anchor, P_model=float(P), mft=(mr, mi),
+                        mharm=mharm, dev={})
 
         def prep_archive(idf, df):
             t0 = time.time()
@@ -343,27 +370,8 @@ class GetTOAs:
                 mkey = (freqs.tobytes(), P_key, float(DM0_arch))
                 entry = model_cache.get(mkey)
                 if entry is None:
-                    model = self.model_source.eval(data.phases, freqs,
-                                                   float(P),
-                                                   unscat=fit_scat)
-                    if add_instrumental_response and \
-                            (self.ird["DM"] or len(self.ird["wids"])):
-                        irf = instrumental_response_port_FT(
-                            data.nbin, freqs, self.ird["DM"], float(P),
-                            self.ird["wids"], self.ird["irf_types"])
-                        model = np.fft.irfft(
-                            irf * np.fft.rfft(model, axis=-1), n=data.nbin,
-                            axis=-1)
-                    nu_anchor = float(freqs.mean())
-                    # dispersion ADDED to the template once, host f64:
-                    # the fit solves a small residual dDM around DM0
-                    model_rot = np.asarray(rotate_portrait_np(
-                        model, 0.0, -DM0_arch, float(P), freqs, nu_anchor),
-                        np_dtype)
-                    mr, mi, mharm = _fit_spectrum(model_rot, data.nbin, f32)
-                    entry = dict(key=next(template_ids), model=model_rot,
-                                 nu_anchor=nu_anchor, P_model=float(P),
-                                 mft=(mr, mi), mharm=mharm, dev={})
+                    with annotate("pp:load.template"):
+                        entry = template_entry(data, freqs, P, DM0_arch)
                     model_cache[mkey] = entry
                 freqsx = freqs[okc]
                 if nu_fits is not None:
@@ -507,6 +515,8 @@ class GetTOAs:
                 dur = (time.time() - t0) / len(items)
                 timing["fit_s"] += time.time() - t0
             timing["batched_chunks"] += int(batch)
+            timing["fit_subints"] += len(items)
+            timing["i2_subints"] += len(items) if scales is not None else 0
             for i, (iarch, p) in enumerate(items):
                 results[(iarch, p["isub"])] = (
                     type(host)(*[v[i] for v in host]), dur)

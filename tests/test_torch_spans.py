@@ -149,7 +149,8 @@ def test_get_toas_spans_at_the_fit_timing_boundaries(ws):
         gt.get_TOAs(quiet=True)
     spans = _pp_spans(prof)
     assert set(gt.fit_timing) == {"load_s", "fit_s", "assemble_s",
-                                  "wall_s", "batched_chunks"}
+                                  "wall_s", "batched_chunks", "fit_subints",
+                                  "i2_subints"}
     narch = len(ws["files"])
     assert len(_named(spans, "pp:toas.load")) == narch
     assert len(_named(spans, "pp:toas.assemble")) == narch
