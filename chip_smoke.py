@@ -143,6 +143,14 @@ parallel), then:
      float64 against tr_solve_reference in float64 on the CPU, timed by
      CUDA events beside the eager path's wall (tr_solve_reference on the
      card); the batched fits (phase 4) must launch it.
+ 20. the load statistics (phase_load_stats, after phase 19):
+     csrc/load_stats.cu at 4096 profiles (8 subints x 512 channels) x
+     2048 and x 1536 bins against profile_stats_reference on the CPU
+     (baseline, sum and max to the bit, the noise within 2e-6), timed
+     by CUDA events beside the twin on the card and the bound; the walls
+     of archive_stats on the card and of the host route it replaces;
+     every int16 archive of phase 6's pipelines (2048, 1536, 8192 bins)
+     must launch it once.
 ptxas's registers and spills are printed for every kernel; a spill in the
 setup FFT, the setup epilogue or the scattering kernel fails the run.
 Launch counts are reset before each pipeline run (the main paths) and
@@ -860,6 +868,106 @@ def phase_scat_kernel(dev):
     return rec
 
 
+def load_stats_archive(rng, nbin, nsub=8, nchan=512):
+    """(raw (nsub, nchan, nbin) int16, scale, offs (nsub, nchan) float32):
+    a pulse on a DC level with noise, quantized over the int16 range
+    profile by profile."""
+    import numpy as np
+    ph = (np.arange(nbin) + 0.5) / nbin
+    x = rng.uniform(0.05, 1.0, (nsub, nchan, 1)) * np.exp(
+        -0.5 * ((ph - 0.4) / 0.02) ** 2) + \
+        rng.normal(0.0, NOISE, (nsub, nchan, nbin)) + \
+        rng.uniform(-1.0, 1.0, (nsub, nchan, 1))
+    lo, hi = x.min(-1), x.max(-1)
+    scale = ((hi - lo) / 65534.0).astype(np.float32)
+    offs = (0.5 * (lo + hi)).astype(np.float32)
+    raw = np.clip(np.round((x - offs[..., None]) / scale[..., None]),
+                  -32767, 32767).astype(np.int16)
+    return raw, scale, offs
+
+
+def load_stats_host_s(raw, scale, offs):
+    """The wall of load_data's host route over the decoded cube: the
+    baseline, the noise (a float32 rfft of every profile) and the S/N."""
+    import numpy as np
+
+    from pulseportraiture_tpu_torch.io.mjd import MJD
+    from pulseportraiture_tpu_torch.io.psrfits import Archive
+    from pulseportraiture_tpu_torch.ops.noise import get_noise_PS, get_SNR
+    nsub, nchan, _ = raw.shape
+    cube = (scale[..., None] * raw + offs[..., None]).astype(np.float32)
+    a = Archive(data=cube[:, None], freqs=np.ones((nsub, nchan)),
+                weights=np.ones((nsub, nchan)), Ps=np.ones(nsub),
+                epochs=[MJD(58000, 0, 0.0)] * nsub, subtimes=np.ones(nsub))
+    t0 = time.perf_counter()
+    a.remove_baseline()
+    d = np.asarray(a.data, dtype=np.float32)
+    noise = np.asarray(get_noise_PS(d, chans=True), dtype=np.float64)
+    nz = noise[noise > 0.0]
+    get_SNR(d, noise=np.float32(np.sqrt(np.mean(nz ** 2))))
+    return time.perf_counter() - t0
+
+
+def phase_load_stats(dev):
+    """The load statistics kernel (csrc/load_stats.cu) at an archive of 8
+    subints x 512 channels (4096 profiles) x 2048 and x 1536 bins:
+    baseline, sum and max the same bits as profile_stats_reference on the
+    CPU, the noise within 2e-6; kernel and twin on the card timed by CUDA
+    events (mean of 20 launches) beside the bound, max(bytes / 3.35 TB/s,
+    FP32 flops / 67 TFLOP/s) with the int16 read once and 2.5 (nbin/2)
+    log2(nbin/2) + 12 a top-quarter harmonic flops a profile; the walls
+    (median of 5) of archive_stats on the card (the copies, the kernel,
+    the S/N) and of the host route it replaces in get_TOAs."""
+    import numpy as np
+    import torch
+
+    from pulseportraiture_tpu_torch.ops import load_stats as ls
+
+    rec = {}
+    for nbin in (2048, 1536):
+        raw, scale, offs = load_stats_archive(np.random.default_rng(nbin),
+                                              nbin)
+        r, s = torch.from_numpy(raw).to(dev), torch.from_numpy(scale).to(dev)
+        n0 = ls.profile_stats.launches
+        got = [t.cpu() for t in ls.profile_stats(r, s)]
+        if ls.profile_stats.launches != n0 + 1:
+            raise AssertionError("load_stats: not one launch")
+        want = ls.profile_stats_reference(torch.from_numpy(raw),
+                                          torch.from_numpy(scale))
+        rel = float(((got[1] - want[1]).abs() / want[1]).max())
+        if not all(torch.equal(got[i], want[i]) for i in (0, 2, 3)) or \
+                rel > 2e-6:
+            raise AssertionError(f"load_stats at {nbin} bins: baseline, sum "
+                                 f"or max not the twin's bits, or the "
+                                 f"noise {rel:.3e} from the twin's")
+        nprof, nz = raw.size // nbin, nbin // 2
+        nbytes = nprof * (2 * nbin + 4 + 16)
+        flops = nprof * (2.5 * nz * math.log2(nz) +
+                         12 * (nz - (3 * (nz + 1)) // 4 + 1))
+        bound = max(nbytes / 3.35e12, flops / 67e12) * 1e3
+        ms = cuda_ms(lambda: ls.profile_stats(r, s), reps=20, warm=3)
+        plain = cuda_ms(lambda: ls.profile_stats_reference(r, s), reps=20,
+                        warm=3)
+        walls = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            ls.archive_stats(raw, scale, dev)
+            walls.append(time.perf_counter() - t0)
+        card = 1e3 * statistics.median(walls[1:])
+        host = 1e3 * statistics.median(load_stats_host_s(raw, scale, offs)
+                                       for _ in range(5))
+        log(f"load_stats {nprof} x {nbin}: noise within {rel:.3e} of the "
+            f"twin; kernel {ms:.4f} ms (CUDA events), twin on the card "
+            f"{plain:.4f} ms, bound {bound:.4f} ms (bytes {nbytes}, flops "
+            f"{flops:.4g}); walls: archive_stats on the card {card:.2f} "
+            f"ms, the host route {host:.2f} ms")
+        rec[nbin] = dict(max_abs_err=rel, ms=ms, plain_ms=plain,
+                         bound_ms=bound, bound_by="bytes" if nbytes /
+                         3.35e12 > flops / 67e12 else "flops",
+                         card_route_ms=card, host_route_ms=host)
+    return rec
+
+
 def phase_kernels_wide(dev):
     """The three phase kernels at nh = 8193 (16384 bins, full band: k past
     4096, where phase_trig reduces k mod 8192 and the scattering
@@ -1251,6 +1359,7 @@ def write_archives(rng, nsub=8, t_scat=0.0, tag="epoch", narch=2,
 
 
 def reset_launches():
+    from pulseportraiture_tpu_torch.ops import load_stats as ls
     from pulseportraiture_tpu_torch.ops import moments as mom
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
     from pulseportraiture_tpu_torch.ops import tr_solve as trs
@@ -1260,11 +1369,13 @@ def reset_launches():
     mom.scattering_moments.launches = 0
     mom.phase_moments_merged.launches = 0
     trs.tr_solve.launches = 0
+    ls.profile_stats.launches = 0
 
 
 def read_launches(nbin=NBIN):
     """The launch counts since reset_launches, beside the width nbin of
     the path that made them (the route check reads setup_route(nbin))."""
+    from pulseportraiture_tpu_torch.ops import load_stats as ls
     from pulseportraiture_tpu_torch.ops import moments as mom
     from pulseportraiture_tpu_torch.ops import setup_dft as sdft
     from pulseportraiture_tpu_torch.ops import tr_solve as trs
@@ -1273,7 +1384,8 @@ def read_launches(nbin=NBIN):
             "phase_moments": mom.phase_moments.launches,
             "scattering_moments": mom.scattering_moments.launches,
             "phase_moments_merged": mom.phase_moments_merged.launches,
-            "tr_solve": trs.tr_solve.launches}
+            "tr_solve": trs.tr_solve.launches,
+            "profile_stats": ls.profile_stats.launches}
 
 
 def phase_pipeline(rng, nbin=NBIN, narch=2):
@@ -1318,9 +1430,10 @@ def phase_pipeline(rng, nbin=NBIN, narch=2):
                              "sigma")
     if sdft.cap_supported(nbin) and (not gt.mharms or min(gt.mharms) <= 0):
         raise AssertionError(f"the f32 template did not cap: {gt.mharms}")
-    if min(launches["fused_setup"], launches["phase_moments"]) <= 0:
-        raise AssertionError(f"a kernel did not launch on the main path: "
-                             f"{launches}")
+    if min(launches["fused_setup"], launches["phase_moments"]) <= 0 or \
+            launches["profile_stats"] != narch:
+        raise AssertionError(f"a kernel did not launch on the main path "
+                             f"(load_stats once an archive): {launches}")
     rec = dict(nbin=nbin, ntoa=len(lines), wall_s=wall,
                delta_dm=ddm.tolist(), delta_dm_err=err.tolist(),
                injected=list(dDMs), mharms=list(gt.mharms),
@@ -2631,6 +2744,8 @@ def main():
     lap("merged_kernel")
     trec = phase_tr_solve(dev)
     lap("tr_solve")
+    lrec = phase_load_stats(dev)
+    lap("load_stats")
     wrec = phase_kernels_wide(dev)
     lap("kernels_nh8193")
     fits = phase_fit(dev)
@@ -2755,7 +2870,10 @@ def main():
               "scripts/tpu_moments_layout.py:138", [], mrec["subint"],
               {"probe": mrec["probe"]}),
         entry("tr_solve", "pulseportraiture_tpu_torch/csrc/tr_solve.cu",
-              None, [], trec["float32"], {"float64": trec["float64"]})],
+              None, [], trec["float32"], {"float64": trec["float64"]}),
+        entry("profile_stats",
+              "pulseportraiture_tpu_torch/csrc/load_stats.cu", None, [],
+              lrec[2048], {"nbin_1536": lrec[1536]})],
         "fits": fits, "fits_1536": fits_1536, "fits_8192": fits_8192,
         "fits_64": fits_64, "fits_16384": fits_16384,
         "fits_4608": fits_4608, "pow2_widths": prec,

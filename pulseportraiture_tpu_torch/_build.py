@@ -24,7 +24,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 _SOURCES = ("setup_epilogue.cu", "setup_fft.cu", "moments.cu",
-            "scat_moments.cu", "moments_merged.cu", "tr_solve.cu")
+            "scat_moments.cu", "moments_merged.cu", "tr_solve.cu",
+            "load_stats.cu")
 _HEADERS = ("phase_trig.cuh", "fft_passes.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -69,6 +70,8 @@ def _declare(lib):
     lib.pp_tr_solve.argtypes = [vp, i64, i64, vp, i64, i64, i64, vp, i64, vp,
                                 vp, i64, i32, i32, i32, vp]
     lib.pp_tr_solve.restype = i32
+    lib.pp_load_stats.argtypes = [vp, vp, vp, i32, vp, i64, i32, i32, vp]
+    lib.pp_load_stats.restype = i32
     lib.pp_error_string.argtypes = [i32]
     lib.pp_error_string.restype = ctypes.c_char_p
     return lib

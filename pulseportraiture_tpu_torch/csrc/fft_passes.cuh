@@ -1,6 +1,6 @@
 // Register-resident passes of a Stockham autosort FFT of NZ = M 2^LG2
 // complex points, M odd in 1..15 and 32 <= 2^LG2 <= 4096 (2^LG2 >= 128
-// when M > 1), for csrc/setup_fft.cu.
+// when M > 1), for csrc/setup_fft.cu and csrc/load_stats.cu.
 //
 // NZ/16 threads share one transform and each holds 16 points in registers
 // in every power-of-two pass.  The passes are radix 16, then radix 16 again
@@ -324,3 +324,11 @@ __device__ __forceinline__ void odd_pass(float2* buf, const float2* tw,
 }
 
 }  // namespace ppfft
+
+// Every plan (M, LG2), nbin = 2 M 2^LG2: the powers of two 64 .. 8192,
+// then 256 q for odd q = M 2^(LG2 - 7) <= 16 (nbin 768 .. 3840).  X(M, LG2)
+// is called with each; ops/setup_dft.setup_route mirrors the list.
+#define PP_FFT_PLANS(X)                                                  \
+  X(1, 5) X(1, 6) X(1, 7) X(1, 8) X(1, 9) X(1, 10) X(1, 11) X(1, 12)    \
+  X(3, 7) X(3, 8) X(3, 9) X(5, 7) X(5, 8) X(7, 7) X(7, 8) X(9, 7)       \
+  X(11, 7) X(13, 7) X(15, 7)

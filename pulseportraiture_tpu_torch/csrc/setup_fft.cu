@@ -645,13 +645,6 @@ cudaError_t run(const Args& a, int ntw, dim3 grid, size_t rowbytes,
   return launch<M, LG2, MAX_SEEDS>(a, grid, rowbytes, stream);
 }
 
-// Every plan (M, LG2), nbin = 2 M 2^LG2: the powers of two 64 .. 8192,
-// then 256 q for odd q = M 2^(LG2 - 7) <= 16 (nbin 768 .. 3840).
-#define PP_FFT_PLANS(X)                                                  \
-  X(1, 5) X(1, 6) X(1, 7) X(1, 8) X(1, 9) X(1, 10) X(1, 11) X(1, 12)    \
-  X(3, 7) X(3, 8) X(3, 9) X(5, 7) X(5, 8) X(7, 7) X(7, 8) X(9, 7)       \
-  X(11, 7) X(13, 7) X(15, 7)
-
 cudaError_t dispatch(int m, int lg2, const Args& a, int ntw, dim3 grid,
                      size_t rowbytes, cudaStream_t stream) {
 #define PP_FFT_CASE(M, LG2) \
@@ -664,9 +657,10 @@ cudaError_t dispatch(int m, int lg2, const Args& a, int ntw, dim3 grid,
 }  // namespace
 
 // x (B, nchan, nbin) int16 (x_is_i16 != 0) or f32, 16-byte aligned, nbin
-// 64, 128, 8192 or 256 q, q = 1 .. 16 (a plan of PP_FFT_PLANS; any other
-// nbin returns cudaErrorInvalidValue); tw (ntw, 2) f32: the twiddled
-// passes' tables then W^k for k <= nbin/4 (ops/setup_dft._fft_tables_np);
+// 64, 128, 8192 or 256 q, q = 1 .. 16 (a plan of PP_FFT_PLANS, in
+// fft_passes.cuh; any other nbin returns cudaErrorInvalidValue); tw (ntw,
+// 2) f32: the twiddled passes' tables then W^k for k <= nbin/4
+// (ops/setup_dft._fft_tables_np);
 // mr/mi (nchan, nh); scale (B, nchan) or null; w (B, nchan, kseed) or null
 // (kseed = 0; at most 2); outputs gr/gi (B, nchan, nh), sd (B, nchan);
 // with kseed > 0: scratch part (B, ceil(nchan/rows_per_tile), kseed, 2,

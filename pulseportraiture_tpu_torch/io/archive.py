@@ -12,6 +12,7 @@ import numpy as np
 from pulseportraiture_tpu_torch.io.psrfits import (Archive, read_psrfits,
                                                    write_psrfits)
 from pulseportraiture_tpu_torch.io.telescopes import telescope_code
+from pulseportraiture_tpu_torch.ops import load_stats
 from pulseportraiture_tpu_torch.ops.noise import get_noise_PS, get_SNR
 from pulseportraiture_tpu_torch.profiling import annotate
 from pulseportraiture_tpu_torch.utils import DataBunch, get_bin_centers
@@ -59,25 +60,37 @@ def _ephemeris_geometry(arch, nsub):
 def load_data(filename, state=None, dedisperse=False, dededisperse=False,
               tscrunch=False, pscrunch=False, fscrunch=False,
               rm_baseline=True, flux_prof=False, return_arch=True,
-              quiet=True):
+              quiet=True, stats_device=None):
     """Load an archive file into the universal DataBunch record.
 
     raw_i2/raw_scl (int16 samples + per-channel DAT_SCL) are kept when
     the file is i2-quantized and no transform rewrote the samples; the
-    per-channel offsets they drop only feed the DC harmonic.  Traced as
-    pp:load.read (read_psrfits: the file, its columns, the int16 decode)
-    and pp:load.prep (the rest: baseline, noise, S/N, geometry).
+    per-channel offsets they drop only feed the DC harmonic.
+
+    stats_device: where the baseline, noise and S/N of an int16 archive
+    may be computed from its raw samples (ops/load_stats.archive_stats; a
+    card: csrc/load_stats.cu) instead of by the host's numpy passes over
+    the decoded cube.  Taken when the samples reach the result unchanged
+    (raw_i2 kept, no tscrunch or fscrunch), with rm_baseline, without
+    flux_prof, at a width load_stats takes; data.raw_stats says whether it
+    was.  The cube (subints, arch.data) is then baseline-removed in place
+    at the first read of data.subints.  None: the host route always.
+
+    Traced as pp:load.read (read_psrfits: the file, its columns, the int16
+    decode) and pp:load.prep (the rest: baseline, noise, S/N, geometry;
+    pp:load.stats inside it on the raw-sample route).
     """
     with annotate("pp:load.read"):
         arch = read_psrfits(filename)
     with annotate("pp:load.prep"):
         return _prepare(arch, filename, state, dedisperse, dededisperse,
                         tscrunch, pscrunch, fscrunch, rm_baseline,
-                        flux_prof, return_arch, quiet)
+                        flux_prof, return_arch, quiet, stats_device)
 
 
 def _prepare(arch, filename, state, dedisperse, dededisperse, tscrunch,
-             pscrunch, fscrunch, rm_baseline, flux_prof, return_arch, quiet):
+             pscrunch, fscrunch, rm_baseline, flux_prof, return_arch, quiet,
+             stats_device):
     """load_data's DataBunch from the Archive read from filename."""
     raw_ok = arch.raw_i2 is not None and arch.npol == 1
     if state is not None and state != arch.state and state == "Intensity":
@@ -93,7 +106,12 @@ def _prepare(arch, filename, state, dedisperse, dededisperse, tscrunch,
     if state is not None and state != arch.state:
         raw_ok = raw_ok and arch.npol == 1
         arch.convert_state(state)
-    if rm_baseline:
+    # the statistics from the raw samples where they reach the result: the
+    # scrunches below would rewrite them (pscrunch leaves npol = 1 alone)
+    raw_stats = (stats_device is not None and raw_ok and rm_baseline and
+                 not (tscrunch or fscrunch or flux_prof) and
+                 load_stats.takes(arch.nbin))
+    if rm_baseline and not raw_stats:
         arch.remove_baseline()
     if tscrunch:
         raw_ok = False
@@ -111,19 +129,26 @@ def _prepare(arch, filename, state, dedisperse, dededisperse, tscrunch,
         freqs = np.broadcast_to(freqs[:1], (nsub, nchan)).copy()
     weights = np.asarray(arch.weights, dtype=np.float64)
     weights_norm = np.where(weights == 0.0, 0.0, 1.0)
-    # the noise estimate is an error bar: f32 FFTs, carried as f64
-    subints_f32 = np.asarray(arch.data, dtype=np.float32)
-    noise_stds = np.asarray(get_noise_PS(subints_f32, chans=True),
-                            dtype=np.float64)
     ok_isubs = np.compress(weights_norm.mean(axis=1), range(nsub))
     ok_ichans = [np.compress(weights_norm[isub], range(nchan))
                  for isub in range(nsub)]
-    nz = noise_stds[noise_stds > 0.0]
-    SNRs = np.asarray(
-        get_SNR(subints_f32,
-                noise=np.float32(np.sqrt(np.mean(nz ** 2)) if nz.size
-                                 else 1.0)),
-        dtype=np.float64)
+    if raw_stats:
+        base, noise_stds, SNRs = load_stats.archive_stats(
+            arch.raw_i2[:, 0], arch.raw_scl[:, 0], stats_device)
+        noise_stds, SNRs = noise_stds[:, None], SNRs[:, None]
+        # the decoded cube's baseline: the window's mean of scl*raw + offs
+        cube_base = (base + arch.raw_offs[:, 0])[:, None, :, None]
+    else:
+        # the noise estimate is an error bar: f32 FFTs, carried as f64
+        subints_f32 = np.asarray(arch.data, dtype=np.float32)
+        noise_stds = np.asarray(get_noise_PS(subints_f32, chans=True),
+                                dtype=np.float64)
+        nz = noise_stds[noise_stds > 0.0]
+        SNRs = np.asarray(
+            get_SNR(subints_f32,
+                    noise=np.float32(np.sqrt(np.mean(nz ** 2)) if nz.size
+                                     else 1.0)),
+            dtype=np.float64)
     if flux_prof:
         fl = arch.copy()
         fl.pscrunch()
@@ -147,15 +172,25 @@ def _prepare(arch, filename, state, dedisperse, dededisperse, tscrunch,
         nu0=arch.nu0, ok_ichans=ok_ichans, ok_isubs=ok_isubs,
         parallactic_angles=parallactic_angles,
         phases=get_bin_centers(nbin, lo=0.0, hi=1.0),
-        Ps=np.asarray(arch.Ps, dtype=np.float64), SNRs=SNRs,
-        source=arch.source, state=arch.state,
-        subints=np.asarray(arch.data),
+        Ps=np.asarray(arch.Ps, dtype=np.float64), raw_stats=raw_stats,
+        SNRs=SNRs, source=arch.source, state=arch.state,
         subtimes=list(np.asarray(arch.subtimes, dtype=np.float64)),
         telescope=arch.telescope, telescope_code=telescope_code(
             arch.telescope), weights=weights)
     if raw_ok:
         data.raw_i2 = arch.raw_i2[:, 0]
         data.raw_scl = arch.raw_scl[:, 0].astype(np.float32)
+    if raw_stats:
+        def _baselined():
+            d = arch.data
+            if not d.flags.writeable:
+                d = arch.data = d.copy()
+            d -= cube_base.astype(d.dtype)
+            return d
+
+        data.add_lazy("subints", _baselined)
+    else:
+        data.subints = np.asarray(arch.data)
 
     # diagnostic fields the TOA pipeline never reads materialize on first
     # access
@@ -164,6 +199,7 @@ def _prepare(arch, filename, state, dedisperse, dededisperse, tscrunch,
         return np.einsum("j,ikl->ijkl", np.ones(npol), m)
 
     def _prof_arch():
+        data.subints                    # arch.data baseline-removed
         pa = arch.copy()
         pa.pscrunch()
         pa.dedisperse()

@@ -44,6 +44,12 @@ def _scratch(shape, dtype, tag):
     return buf[:n].reshape(shape)
 
 
+def baseline_window(nbin, frac=0.15):
+    """The samples of Archive.remove_baseline's window: frac of nbin, at
+    least one."""
+    return max(1, int(frac * nbin))
+
+
 @dataclasses.dataclass
 class Archive:
     """In-memory folded archive: (nsub, npol, nchan, nbin) amplitudes."""
@@ -66,15 +72,18 @@ class Archive:
     state: str = "Intensity"      # 'Intensity', 'Stokes', 'Coherence'
     ephemeris_lines: Optional[List[str]] = None
     doppler_factors: Optional[np.ndarray] = None   # (nsub,)
-    # int16-native ingest (files quantized as i2): the raw samples and
-    # per-channel DAT_SCL, as stored.  value = scl*raw + offs; offsets
-    # are NOT kept — they only feed the DC harmonic, which the fit
-    # discards under F0_FACT zeroing.  These reflect the FILE contents:
+    # int16-native ingest (files quantized as i2): the raw samples,
+    # per-channel DAT_SCL and DAT_OFFS, as stored.  value = scl*raw + offs;
+    # the fit takes raw and scl only — offsets feed the DC harmonic, which
+    # it discards under F0_FACT zeroing; load_data's statistics from the
+    # raw samples add them back to the baseline.  These reflect the FILE
+    # contents:
     # any transform that rewrites self.data (rotation, scrunching,
     # state conversion) makes them stale — load_data only forwards
     # them when no such transform ran (io/archive.py).
     raw_i2: Optional[np.ndarray] = None    # (nsub, npol, nchan, nbin) i2
     raw_scl: Optional[np.ndarray] = None   # (nsub, npol, nchan) f4
+    raw_offs: Optional[np.ndarray] = None  # (nsub, npol, nchan) f4
 
     @property
     def nsub(self):
@@ -218,7 +227,7 @@ class Archive:
         equal to <=1 ulp — far below the estimator's own noise).
         """
         nbin = self.nbin
-        wlen = max(1, int(frac * nbin))
+        wlen = baseline_window(nbin, frac)
         d = self.data
         d2 = np.asarray(d, dtype=np.float32).reshape(-1, nbin)
         nprof = d2.shape[0]
@@ -329,7 +338,7 @@ def read_psrfits(path) -> Archive:
         nsub, npol * nchan)
     offs = np.asarray(sub.columns["DAT_OFFS"], dtype="f8").reshape(
         nsub, npol * nchan)
-    raw_i2 = raw_scl = None
+    raw_i2 = raw_scl = raw_offs = None
     # data stays at its native storage width: i2/f4 columns carry f32
     # information, so the in-memory cube is f32 (halves every host pass
     # on campaign loads; consumers that need f64 math upcast at the
@@ -338,6 +347,7 @@ def read_psrfits(path) -> Archive:
         from pulseportraiture_tpu_torch.io import native
         raw_i2 = raw.reshape(nsub, npol, nchan, nbin)
         raw_scl = scl.astype("f4").reshape(nsub, npol, nchan)
+        raw_offs = offs.astype("f4").reshape(nsub, npol, nchan)
         data = native.dequantize_i2(
             raw, scl.astype("f4"), offs.astype("f4")).reshape(
             nsub, npol, nchan, nbin)
@@ -419,4 +429,4 @@ def read_psrfits(path) -> Archive:
         backend_delay=float(primary.header.get("BE_DELAY", 0.0)),
         state=state, ephemeris_lines=eph,
         doppler_factors=None if dop is None else np.asarray(dop, dtype="f8"),
-        raw_i2=raw_i2, raw_scl=raw_scl)
+        raw_i2=raw_i2, raw_scl=raw_scl, raw_offs=raw_offs)

@@ -4,8 +4,10 @@ Port of pulseportraiture_tpu.pipelines.toas.GetTOAs:
 
   get_TOAs             the wideband fit: (phi, DM[, GM]), and with fit_scat
                        the scattering fit (phi, DM[, GM], tau[, alpha]).  Per
-                       archive: load, prepare every subint against a
-                       cached template (evaluated, base-rotated by the
+                       archive: load (a float32 fit on a card takes an
+                       int16 archive's baseline, noise and S/N from the
+                       card: ops/load_stats), prepare every subint against
+                       a cached template (evaluated, base-rotated by the
                        header DM on the host in float64, and band-capped
                        for float32 fits), fit the subints in chunked
                        batches with fitters.portrait.fit_portrait_full_batch
@@ -55,6 +57,7 @@ from pulseportraiture_tpu_torch.fitters.portrait import (
 from pulseportraiture_tpu_torch.io.archive import load_data
 from pulseportraiture_tpu_torch.ops.gaussian import \
     instrumental_response_port_FT
+from pulseportraiture_tpu_torch.ops import load_stats
 from pulseportraiture_tpu_torch.ops.noise import get_noise_PS
 from pulseportraiture_tpu_torch.ops.rotate import (rotate_portrait_full,
                                                    rotate_portrait_np)
@@ -304,10 +307,11 @@ class GetTOAs:
         f32 = self.dtype == torch.float32
         np_dtype = np.float32 if f32 else np.float64
         # fit_subints: subints fitted; i2_subints: those of them that
-        # reached the fit as int16 samples and scales
+        # reached the fit as int16 samples and scales; card_prep_subints:
+        # those whose archive's baseline, noise and S/N came from the card
         timing = {"load_s": 0.0, "fit_s": 0.0, "assemble_s": 0.0,
                   "wall_s": 0.0, "batched_chunks": 0, "fit_subints": 0,
-                  "i2_subints": 0}
+                  "i2_subints": 0, "card_prep_subints": 0}
         self.fit_timing = timing
         start_all = time.time()
         model_cache = {}
@@ -339,12 +343,15 @@ class GetTOAs:
                         nu_anchor=nu_anchor, P_model=float(P), mft=(mr, mi),
                         mharm=mharm, dev={})
 
+        stats_device = load_stats.stats_device(self.device, self.dtype)
+
         def prep_archive(idf, df):
             t0 = time.time()
             try:
                 data = load_data(df, dedisperse=False, dededisperse=True,
                                  tscrunch=tscrunch, pscrunch=True,
-                                 rm_baseline=True, quiet=quiet)
+                                 rm_baseline=True, quiet=quiet,
+                                 stats_device=stats_device)
             except (OSError, ValueError, KeyError, EOFError) as exc:
                 print(f"Skipping {df}: could not load ({exc})")
                 return None
@@ -408,7 +415,7 @@ class GetTOAs:
                             port=port, scale=scale, errs=errs, okc=okc,
                             entry=entry, nu_fit=nu_fit, DM_base=DM0_arch,
                             init=init, sub_flags=sub_flags,
-                            batchable=batchable,
+                            batchable=batchable, raw_stats=data.raw_stats,
                             doppler=data.doppler_factors[isub])
                 if not batchable:
                     # fitted per archive from a brute FFTFIT phase start
@@ -517,6 +524,8 @@ class GetTOAs:
             timing["batched_chunks"] += int(batch)
             timing["fit_subints"] += len(items)
             timing["i2_subints"] += len(items) if scales is not None else 0
+            timing["card_prep_subints"] += sum(p["raw_stats"]
+                                               for _, p in items)
             for i, (iarch, p) in enumerate(items):
                 results[(iarch, p["isub"])] = (
                     type(host)(*[v[i] for v in host]), dur)

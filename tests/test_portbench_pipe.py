@@ -8,8 +8,11 @@ TOA moved by its error, a subint's line dropped) that make `correct`
 false; the program's reader returning
 the generator's int16 samples and scales bit for bit; the int16 route's
 count (every subint of npol = 1 files, none of npol = 4 files); the
-loader's pp:load.* ranges under torch.profiler and nowhere without one;
-and the cell's metric readers on hand-built inputs.
+card-prep route (the archives' statistics from the raw samples, here by
+the kernel's plain twin): its count, its lines against the host route's,
+a subint fitted outside the batch; the loader's pp:load.* ranges under
+torch.profiler and nowhere without one; and the cell's metric readers on
+hand-built inputs.
 """
 
 import contextlib
@@ -25,6 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 from portbench import archives, control_toa, run
 from portbench.trace import Trace
 from pulseportraiture_tpu_torch import profiling
+from pulseportraiture_tpu_torch.config import DCONST
 from pulseportraiture_tpu_torch.io.psrfits import read_psrfits, write_psrfits
 from pulseportraiture_tpu_torch.pipelines import toas
 
@@ -128,8 +132,11 @@ def test_tiny_run_reports_the_cells_metrics():
     # the readers of device operations and of spans find nothing on the
     # CPU; the program's own counts are there
     assert set(out["metrics"]) == {"newton_iters.fit", "load_share.pipe",
-                                   "assemble_share.pipe", "i2_share.pipe"}
+                                   "assemble_share.pipe", "i2_share.pipe",
+                                   "card_prep_share.pipe"}
     assert out["metrics"]["i2_share.pipe"]["value"] == 100.0
+    # a CPU fit prepares its archives on the host
+    assert out["metrics"]["card_prep_share.pipe"]["value"] == 0.0
     assert 0 < out["metrics"]["load_share.pipe"]["value"] < 100
 
 
@@ -187,10 +194,81 @@ def test_int16_route_counts_the_subints_it_takes(files, npol):
     t = gt.fit_timing
     assert t["fit_subints"] == len(gt.TOA_list) == 4
     assert t["i2_subints"] == (4 if npol == 1 else 0)
+    assert t["card_prep_subints"] == 0
     ctx = types.SimpleNamespace(calls=[(0.0, 1.0, 4)], entry=types.
                                 SimpleNamespace(answers=[dict(timing=t)]))
     assert _reader("i2_share.pipe").read(ctx) == (100.0 if npol == 1
                                                   else 0.0)
+
+
+def _stats_on(monkeypatch, device=CPU):
+    """get_TOAs' float32 fits on the CPU take the card's route for an
+    archive's statistics, with the plain twin in the kernel's place."""
+    monkeypatch.setattr(toas.load_stats, "stats_device",
+                        lambda d, dt: device if dt == torch.float32 else None)
+
+
+@pytest.mark.parametrize("npol", [1, 4])
+def test_card_prep_counts_the_subints_it_prepares(files, npol, monkeypatch):
+    host = toas.GetTOAs(files["npol%d" % npol], files["gmodel"],
+                        device="cpu", dtype=torch.float32, quiet=True)
+    host.get_TOAs(quiet=True)
+    _stats_on(monkeypatch)
+    gt = toas.GetTOAs(files["npol%d" % npol], files["gmodel"], device="cpu",
+                      dtype=torch.float32, quiet=True)
+    gt.get_TOAs(quiet=True)
+    t = gt.fit_timing
+    assert t["fit_subints"] == len(gt.TOA_list) == 4
+    assert t["card_prep_subints"] == (4 if npol == 1 else 0)
+    ctx = types.SimpleNamespace(calls=[(0.0, 1.0, 4)], entry=types.
+                                SimpleNamespace(answers=[dict(timing=t)]))
+    assert _reader("card_prep_share.pipe").read(ctx) == (
+        100.0 if npol == 1 else 0.0)
+    # the same lines within a hair of their errors: only nu_fit's S/N
+    # weights move, and with them the frequency a TOA is given at
+    for a, b in zip(gt.TOA_list, host.TOA_list):
+        assert (a.archive, a.flags["subint"]) == (b.archive,
+                                                  b.flags["subint"])
+        assert abs(_toa_us(a, b.frequency) - _toa_us(b, b.frequency)) <= \
+            1e-3 * b.TOA_error
+        assert abs(a.DM - b.DM) <= 1e-3 * b.DM_error
+        assert a.TOA_error == pytest.approx(b.TOA_error, rel=1e-3)
+
+
+def _toa_us(t, nu):
+    """TOA t [us from its MJD day's start] moved to nu [MHz] with its DM."""
+    return (t.MJD.secs + t.MJD.frac + DCONST * t.DM *
+            (nu ** -2.0 - t.frequency ** -2.0)) * 1e6 + \
+        t.MJD.days * 86400e6
+
+
+def test_card_prep_serves_a_subint_outside_the_batch(files, monkeypatch):
+    """A subint with one live channel is fitted on its own from the
+    baseline-removed cube, which the card's baselines make at that read."""
+    real = toas.load_data
+
+    def one_channel(*a, **kw):
+        data = real(*a, **kw)
+        data.ok_ichans[1] = data.ok_ichans[1][:1]
+        data.weights[1, 1:] = 0.0
+        return data
+    monkeypatch.setattr(toas, "load_data", one_channel)
+    runs = []
+    for stats in (False, True):
+        if stats:
+            _stats_on(monkeypatch)
+        gt = toas.GetTOAs(files["npol1"][:1], files["gmodel"], device="cpu",
+                          dtype=torch.float32, quiet=True)
+        gt.get_TOAs(quiet=True)
+        runs.append(gt)
+    host, card = runs
+    assert card.fit_timing["card_prep_subints"] == 2
+    assert card.fit_timing["batched_chunks"] == 1
+    a, b = card.TOA_list[1], host.TOA_list[1]
+    assert a.flags["subint"] == b.flags["subint"] == 1
+    assert a.frequency == b.frequency
+    assert abs(_toa_us(a, b.frequency) - _toa_us(b, b.frequency)) <= \
+        1e-3 * b.TOA_error
 
 
 def _load_spans(prof):
@@ -214,6 +292,18 @@ def test_load_spans_under_the_profiler_and_not_without(files, monkeypatch):
         # one template evaluation a call: the second archive's hits
         assert inner == ["pp:load.read", "pp:load.prep"] + \
             (["pp:load.template"] if k == 0 else [])
+    # with the statistics from the raw samples: pp:load.stats inside
+    # pp:load.prep
+    _stats_on(monkeypatch)
+    gt = toas.GetTOAs(files["npol1"], files["gmodel"], device="cpu",
+                      dtype=torch.float32, quiet=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        gt.get_TOAs(quiet=True)
+    spans = _load_spans(prof)
+    stats = [s for s in spans if s[0] == "pp:load.stats"]
+    preps = [s for s in spans if s[0] == "pp:load.prep"]
+    assert len(stats) == len(preps) == 2
+    assert all(p[1] <= s[1] and s[2] <= p[2] for s, p in zip(stats, preps))
     recorded = []
 
     def record(name):
@@ -263,21 +353,29 @@ def test_span_readers(name):
     assert r.read(_traced([s for s in spans if s[0] != SPANS[name]])) is None
 
 
+# the readers of a share of the fitted subints, and their counts
+COUNTS = {"i2_share.pipe": "i2_subints",
+          "card_prep_share.pipe": "card_prep_subints"}
+
+
 @pytest.mark.parametrize("name,key", [("load_share.pipe", "load_s"),
                                       ("assemble_share.pipe", "assemble_s"),
-                                      ("i2_share.pipe", None)])
+                                      ("i2_share.pipe", None),
+                                      ("card_prep_share.pipe", None)])
 def test_timing_readers(name, key):
     # three window calls of 2 s, then a traced one the readers leave out
     calls = [(0.0, 2.0, 16), (2.0, 4.0, 16), (4.0, 6.0, 16)]
     timing = dict(load_s=1.5, assemble_s=0.06, fit_subints=16,
-                  i2_subints=12)
+                  i2_subints=12, card_prep_subints=4)
     entry = types.SimpleNamespace(answers=[dict(timing=timing)] * 3 + [
-        dict(timing=dict(timing, load_s=9.0, i2_subints=0))])
+        dict(timing=dict(timing, load_s=9.0, i2_subints=0,
+                         card_prep_subints=0))])
     ctx = types.SimpleNamespace(calls=calls, entry=entry)
-    want = 75.0 if key is None else 100.0 * timing[key] / 2.0
+    want = 100.0 * timing[COUNTS[name]] / 16 if key is None else \
+        100.0 * timing[key] / 2.0
     assert _reader(name).read(ctx) == pytest.approx(want)
     # a program whose fit_timing lacks the key reports nothing
     bare = {k: v for k, v in timing.items()
-            if k != (key or "i2_subints")}
+            if k != (key or COUNTS[name])}
     entry.answers = [dict(timing=bare)] * 3
     assert _reader(name).read(ctx) is None

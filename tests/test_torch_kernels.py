@@ -987,3 +987,93 @@ def test_newton_loop_solves_through_the_kernel(cuda, fit_flags):
     for j in np.flatnonzero(fit_flags):
         d = (g.params[:, j].double().cpu() - c.params[:, j]).abs()
         assert bool((d <= 1e-2 * c.param_errs[:, j]).all()), (j, d)
+
+
+def _stats_rows(rng, nprof, nbin):
+    """(raw (nprof, nbin) int16, scale (nprof,) float32): a pulse of random
+    phase, width and height on a DC level with noise, quantized over the
+    int16 range; row 0 flat (every window ties), row 1 a zero scale, row 2
+    a negative scale, row 3 all zeros."""
+    ph = (np.arange(nbin) + 0.5) / nbin
+    x = rng.uniform(0.0, 2.0, (nprof, 1)) * np.exp(
+        -0.5 * ((ph - rng.uniform(0, 1, (nprof, 1))) /
+                rng.uniform(0.01, 0.1, (nprof, 1))) ** 2) + \
+        rng.normal(0.0, 0.1, (nprof, nbin)) + rng.uniform(-3, 3, (nprof, 1))
+    lo, hi = x.min(-1, keepdims=True), x.max(-1, keepdims=True)
+    scale = ((hi - lo) / 65534.0)[:, 0].astype(np.float32)
+    raw = np.clip(np.round((x - 0.5 * (lo + hi)) / scale[:, None]),
+                  -32767, 32767).astype(np.int16)
+    raw[0] = 1234
+    scale[1] = 0.0
+    scale[2] = -scale[2]
+    raw[3] = 0
+    return raw, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbin,nprof", [
+    (64, 300), (128, 70), (256, 33), (512, 70), (1024, 70), (2048, 4096),
+    (4096, 70), (8192, 17),                      # every power-of-two plan
+    (768, 33), (1280, 33), (1536, 130), (3328, 5), (3840, 33)])  # M > 1
+def test_load_stats_kernel_matches_twin(cuda, nbin, nprof):
+    from pulseportraiture_tpu_torch.ops import load_stats as ls
+    raw, scale = _stats_rows(np.random.default_rng(nbin), nprof, nbin)
+    r, s = torch.from_numpy(raw).to(cuda), torch.from_numpy(scale).to(cuda)
+    n0 = ls.profile_stats.launches
+    got = [t.cpu() for t in ls.profile_stats(r, s)]
+    again = [t.cpu() for t in ls.profile_stats(r, s)]
+    torch.cuda.synchronize()
+    assert ls.profile_stats.launches == n0 + 2
+    want = ls.profile_stats_reference(torch.from_numpy(raw),
+                                      torch.from_numpy(scale))
+    # the window from exact integers: baseline, sum and max to the bit;
+    # every output the same bits on a second launch
+    for i in (0, 2, 3):
+        assert torch.equal(got[i], want[i]), \
+            (i, (got[i] - want[i]).abs().max())
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    # the noise: two float32 FFTs (the kernel's of raw, times |scale|),
+    # relative to the noise and to the row's largest sample
+    top = (torch.from_numpy(raw).float().abs().amax(-1) *
+           torch.from_numpy(scale).abs())
+    err = (got[1] - want[1]).abs()
+    assert torch.all(err <= 2e-6 * want[1] + 1e-6 * top), err.max()
+
+
+@pytest.mark.cuda
+def test_load_stats_on_the_card_match_the_twin_route(cuda):
+    """archive_stats (the copy, the kernel, the S/N on the card, the copy
+    back) against the same on the CPU (the twin)."""
+    from pulseportraiture_tpu_torch.ops import load_stats as ls
+    raw, scale = _stats_rows(np.random.default_rng(7), 8 * 512, 2048)
+    raw, scale = raw.reshape(8, 512, 2048), scale.reshape(8, 512)
+    got = ls.archive_stats(raw, scale, cuda)
+    want = ls.archive_stats(raw, scale, torch.device("cpu"))
+    assert got[0].shape == (8, 512) and got[1].dtype == np.float64
+    assert np.array_equal(got[0], want[0])
+    ok = want[1] > 0
+    assert np.allclose(got[1][ok], want[1][ok], rtol=2e-6, atol=0)
+    # (the flat and all-zero rows' S/N is 0/0, NaN, on both routes)
+    assert np.allclose(got[2], want[2], rtol=1e-5, atol=1e-6, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_load_stats_wrapper_refuses_what_it_does_not_take(cuda):
+    from pulseportraiture_tpu_torch.ops import load_stats as ls
+    n0 = ls.profile_stats.launches
+    s = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="nbin=1000"):
+        ls.profile_stats(torch.zeros((4, 1000), dtype=torch.int16,
+                                     device=cuda), s)
+    with pytest.raises(TypeError):
+        ls.profile_stats(torch.zeros((4, 256), device=cuda), s)
+    with pytest.raises(ValueError):              # a scale of another shape
+        ls.profile_stats(torch.zeros((4, 256), dtype=torch.int16,
+                                     device=cuda), s[:3])
+    buf = torch.zeros(4 * 256 + 2, dtype=torch.int16, device=cuda)
+    off = buf[2:].view(4, 256)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte"):
+        ls.profile_stats(off, s)
+    assert ls.profile_stats.launches == n0

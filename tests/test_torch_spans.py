@@ -150,7 +150,7 @@ def test_get_toas_spans_at_the_fit_timing_boundaries(ws):
     spans = _pp_spans(prof)
     assert set(gt.fit_timing) == {"load_s", "fit_s", "assemble_s",
                                   "wall_s", "batched_chunks", "fit_subints",
-                                  "i2_subints"}
+                                  "i2_subints", "card_prep_subints"}
     narch = len(ws["files"])
     assert len(_named(spans, "pp:toas.load")) == narch
     assert len(_named(spans, "pp:toas.assemble")) == narch
