@@ -2,22 +2,15 @@
 
 Port of pulseportraiture_tpu.pipelines.toas.GetTOAs:
 
-  get_TOAs             the wideband fit: (phi, DM[, GM]), and with fit_scat
-                       the scattering fit (phi, DM[, GM], tau[, alpha]).  Per
-                       archive: load (a float32 fit on a card takes an
-                       int16 archive's baseline, noise and S/N from the
-                       card: ops/load_stats), prepare every subint against
-                       a cached template (evaluated, base-rotated by the
-                       header DM on the host in float64, and band-capped
-                       for float32 fits), fit the subints in chunked
-                       batches with fitters.portrait.fit_portrait_full_batch
-                       on the chosen device, and assemble TOAs with
-                       Doppler-corrected DMs, scattering times and .tim
-                       flags.  Subints with a single live channel, and
-                       every subint when the user pins output references
-                       (nu_refs), are fitted from a brute FFTFIT phase
-                       start with reduced flags, as the JAX package's
-                       per-subint fallback does.
+  get_TOAs             the wideband fit, (phi, DM[, GM]) or with fit_scat
+                       (phi, DM[, GM], tau[, alpha]).  Per archive: load
+                       (a float32 fit on a card takes an int16 archive's
+                       baseline, noise and S/N from the card:
+                       ops/load_stats), take each subint's template from
+                       pipelines/template, fit the subints in chunked
+                       batches (fitters.portrait) on the chosen device, and
+                       assemble TOAs with Doppler-corrected DMs,
+                       scattering times and .tim flags.
   get_narrowband_TOAs  per-channel TOAs by batched FFTFIT
                        (fitters.phase_shift), optionally with a
                        per-channel scattering time.
@@ -29,21 +22,18 @@ Port of pulseportraiture_tpu.pipelines.toas.GetTOAs:
 get_TOAs(mesh=...) fits the batched chunks over several devices
 (parallel.mesh); the plots (show_fit, show_plot, get_channels_to_zap's
 show) need matplotlib, which is imported only when one is drawn.
-
-Templates: a FITS archive, a spline model (.spl) or a Gaussian model
-(.gmodel).  Reference: pptoas.py:150-1206.
+Reference: pptoas.py:150-1206.
 """
 
 from __future__ import annotations
 
 import collections
-import itertools
 import time
 
 import numpy as np
 import torch
 
-from pulseportraiture_tpu_torch.config import DCONST, F0_FACT
+from pulseportraiture_tpu_torch.config import F0_FACT
 from pulseportraiture_tpu_torch.io.tim import TOA
 from pulseportraiture_tpu_torch.utils import weighted_mean
 from pulseportraiture_tpu_torch._device import resolve_device
@@ -52,25 +42,20 @@ from pulseportraiture_tpu_torch.fitters.arrival_time import (
 from pulseportraiture_tpu_torch.fitters.phase_shift import \
     fit_phase_shift_batch
 from pulseportraiture_tpu_torch.fitters.portrait import (
-    fit_portrait_full_batch, fit_portrait_full_batch_packed,
-    template_spectrum, unpack_result)
+    fit_portrait_full_batch, fit_portrait_full_batch_packed, unpack_result)
 from pulseportraiture_tpu_torch.io.archive import load_data
-from pulseportraiture_tpu_torch.ops.gaussian import \
-    instrumental_response_port_FT
 from pulseportraiture_tpu_torch.ops import load_stats
 from pulseportraiture_tpu_torch.ops.noise import get_noise_PS
-from pulseportraiture_tpu_torch.ops.rotate import (rotate_portrait_full,
-                                                   rotate_portrait_np)
+from pulseportraiture_tpu_torch.ops.rotate import rotate_portrait_full
 from pulseportraiture_tpu_torch.ops.scattering import (
     scattering_portrait_FT_np, scattering_times)
-from pulseportraiture_tpu_torch.ops.setup_dft import (band_cap_model_ft,
-                                                      cap_nharm)
 from pulseportraiture_tpu_torch.parallel.mesh import \
     fit_portrait_full_sharded
+from pulseportraiture_tpu_torch.pipelines.template import (
+    ModelSource, Templates, fit_spectrum)
 from pulseportraiture_tpu_torch.profiling import annotate
 
 _MAX_CHUNK = 64
-_MAX_TEMPLATES = 8     # cached template evaluations kept at once
 # scattering guess defaults: tau [sec], at nu [MHz], index (pptoas.py:~437)
 _DEFAULT_SCAT_GUESS = (1e-5, 1500.0, -4.0)
 
@@ -120,104 +105,6 @@ def _parallactic_angle_for(data, epoch):
         return float("nan")
 
 
-def _fit_spectrum(model_rot, nbin, f32):
-    """The template's split spectrum for a fit, (mr, mi, mharm): the host
-    float64 rfft, and for float32 fits the model-band harmonic cap (a
-    cleaning floor below the float32 noise, not below float64's, so
-    float64 fits keep the band).  mharm is None where no cap applies."""
-    mr, mi = template_spectrum(model_rot)
-    mharm = None
-    if f32:
-        mr_c, mi_c, mharm = band_cap_model_ft(mr, mi, nbin)
-        if mharm is not None:
-            nh = cap_nharm(nbin, mharm)
-            mr, mi = mr_c[:, :nh], mi_c[:, :nh]
-    return mr, mi, mharm
-
-
-class _ModelSource:
-    """Evaluate the template portrait at a subint's (freqs, P, nbin)."""
-
-    def __init__(self, modelfile):
-        self.modelfile = modelfile
-        self._cache = {}
-        with open(modelfile, "rb") as f:
-            magic = f.read(6)
-        if magic == b"SIMPLE":
-            from pulseportraiture_tpu_torch.io.psrfits import read_psrfits
-            self.kind, self.payload = "fits", read_psrfits(modelfile)
-        elif magic[:2] in (b"\x80\x02", b"\x80\x03", b"\x80\x04",
-                           b"(l") or str(modelfile).endswith((".spl",
-                                                              ".npz")):
-            from pulseportraiture_tpu_torch.models.spline_io import \
-                read_spline_model
-            self.kind = "spline"
-            self.payload = read_spline_model(modelfile, quiet=True)
-        else:
-            from pulseportraiture_tpu_torch.models.gmodel_io import \
-                read_model
-            self.kind, self.payload = "gauss", read_model(modelfile,
-                                                          quiet=True)
-
-    def eval(self, phases, freqs, P, unscat=False):
-        """Template portrait (nchan, nbin) at the given grid.
-
-        unscat=True evaluates a Gaussian model with its own scattering
-        zeroed: required when the fit measures tau itself, or the kernel
-        would be applied twice (pptoas.py:365-375).  Evaluations are
-        cached: subints usually share the frequency grid, and only a
-        scattered Gaussian model depends on P at all.
-        """
-        nbin = len(phases)
-        p_sensitive = (self.kind == "gauss" and self.payload[4][1] != 0
-                       and not unscat)
-        key = (np.asarray(freqs).tobytes(), nbin, bool(unscat),
-               round(float(P), 12) if p_sensitive else None)
-        hit = self._cache.get(key)
-        if hit is None:
-            hit = self._eval(phases, freqs, P, unscat)
-            if len(self._cache) > 64:
-                self._cache.clear()
-            self._cache[key] = hit
-        return hit
-
-    def _eval(self, phases, freqs, P, unscat):
-        nbin = len(phases)
-        if self.kind == "gauss":
-            from pulseportraiture_tpu_torch.models.gaussian import \
-                gen_gaussian_portrait
-            (_, model_code, nu_ref, _, params, _, alpha, _) = self.payload
-            p = np.array(params)
-            if unscat:
-                p[1] = 0.0
-            elif p[1] != 0:
-                p[1] *= nbin / P           # seconds -> bins
-            return gen_gaussian_portrait(model_code, p, alpha, phases, freqs,
-                                         nu_ref).numpy()
-        if self.kind == "spline":
-            from pulseportraiture_tpu_torch.models.spline import \
-                gen_spline_portrait
-            name, source, datafile, mean_prof, eigvec, tck = self.payload
-            return gen_spline_portrait(
-                mean_prof, freqs, eigvec, tck,
-                nbin if nbin != len(mean_prof) else None,
-                device="cpu").numpy()
-        # FITS archive template: t/p-scrunched, baseline removed,
-        # nearest-frequency channel matching (pptoas.py:320-339)
-        arch = self.payload.copy()
-        arch.tscrunch()
-        arch.pscrunch()
-        arch.remove_baseline()
-        tmpl = arch.data[0, 0]
-        tmpl_freqs = arch.freqs[0]
-        if tmpl.shape[-1] != nbin:
-            raise ValueError("Model template nbin mismatch")
-        if tmpl.shape[0] == 1:
-            return np.tile(tmpl[0], (len(freqs), 1))
-        idx = np.array([np.argmin(np.abs(tmpl_freqs - f)) for f in freqs])
-        return tmpl[idx]
-
-
 class GetTOAs:
     """Measure wideband or narrowband TOAs for archives against a template.
 
@@ -241,7 +128,7 @@ class GetTOAs:
             raise TypeError(f"dtype must be float32 or float64, got {dtype}")
         self.dtype = dtype
         self.datafiles = _resolve_datafiles(datafiles)
-        self.model_source = _ModelSource(modelfile)
+        self.model_source = ModelSource(modelfile)
         self.modelfile = modelfile
         self.quiet = quiet
         self.obs, self.nu0s, self.ok_idatafiles, self.order = [], [], [], []
@@ -249,9 +136,7 @@ class GetTOAs:
         self.fit_durations, self.TOA_list = [], []
         for name in self._PER_ARCHIVE:
             setattr(self, name, [])
-        self.mharms = []
-        self.fit_timing = {}
-        self.psrchive_toas = []
+        self.mharms, self.fit_timing, self.psrchive_toas = [], {}, []
         # DM smearing within channels plus extra response widths/types,
         # applied to the template by get_TOAs(add_instrumental_response)
         self.instrumental_response_dict = self.ird = \
@@ -295,12 +180,8 @@ class GetTOAs:
         datafiles = [datafile] if datafile is not None else self.datafiles
         addtnl_toa_flags = addtnl_toa_flags or {}
         # fit-flag assembly (pptoas.py:216-227)
-        if fit_scat and not fix_alpha:
-            fit_flags = (1, int(fit_DM), int(fit_GM), 1, 1)
-        elif fit_scat:
-            fit_flags = (1, int(fit_DM), int(fit_GM), 1, 0)
-        else:
-            fit_flags = (1, int(fit_DM), int(fit_GM), 0, 0)
+        fit_flags = (1, int(fit_DM), int(fit_GM), int(bool(fit_scat)),
+                     int(bool(fit_scat) and not fix_alpha))
         self.bary = bary
         self.log10_tau = log10_tau = bool(log10_tau and fit_scat)
         sg = _DEFAULT_SCAT_GUESS if scat_guess is None else scat_guess
@@ -314,72 +195,27 @@ class GetTOAs:
                   "i2_subints": 0, "card_prep_subints": 0}
         self.fit_timing = timing
         start_all = time.time()
-        model_cache = {}
-        template_ids = itertools.count()
+        templates = Templates(
+            self.model_source, self.dtype, unscat=fit_scat,
+            ird=self.ird if add_instrumental_response else None)
         jobs, results, buffers = [], {}, {}
         next_assemble = 0
-
-        def template_entry(data, freqs, P, DM0_arch):
-            """The template at a subint's grid as the fits take it:
-            evaluated, given the instrumental response when asked for,
-            dispersed by DM0 about the band's mean, its spectrum split
-            (and band-capped for float32 fits)."""
-            model = self.model_source.eval(data.phases, freqs, float(P),
-                                           unscat=fit_scat)
-            if add_instrumental_response and \
-                    (self.ird["DM"] or len(self.ird["wids"])):
-                irf = instrumental_response_port_FT(
-                    data.nbin, freqs, self.ird["DM"], float(P),
-                    self.ird["wids"], self.ird["irf_types"])
-                model = np.fft.irfft(
-                    irf * np.fft.rfft(model, axis=-1), n=data.nbin, axis=-1)
-            nu_anchor = float(freqs.mean())
-            # dispersion ADDED to the template once, host f64: the fit
-            # solves a small residual dDM around DM0
-            model_rot = np.asarray(rotate_portrait_np(
-                model, 0.0, -DM0_arch, float(P), freqs, nu_anchor), np_dtype)
-            mr, mi, mharm = _fit_spectrum(model_rot, data.nbin, f32)
-            return dict(key=next(template_ids), model=model_rot,
-                        nu_anchor=nu_anchor, P_model=float(P), mft=(mr, mi),
-                        mharm=mharm, dev={})
 
         stats_device = load_stats.stats_device(self.device, self.dtype)
 
         def prep_archive(idf, df):
             t0 = time.time()
-            try:
-                data = load_data(df, dedisperse=False, dededisperse=True,
-                                 tscrunch=tscrunch, pscrunch=True,
-                                 rm_baseline=True, quiet=quiet,
-                                 stats_device=stats_device)
-            except (OSError, ValueError, KeyError, EOFError) as exc:
-                print(f"Skipping {df}: could not load ({exc})")
+            data = self._load_dispersed(df, tscrunch, quiet, stats_device)
+            if data is None:
                 return None
             DM0_arch = data.DM if DM0 is None else DM0
             i2_ok = f32 and not F0_FACT and \
                 getattr(data, "raw_i2", None) is not None
             preps = []
-            if len(model_cache) > _MAX_TEMPLATES:
-                # campaigns share one grid; differing periods or grids
-                # would otherwise grow the cache without bound (queued
-                # subints keep their own template references)
-                model_cache.clear()
             for isub in data.ok_isubs:
-                P = data.Ps[isub]
-                freqs = data.freqs[isub]
-                weights = data.weights[isub]
-                okc = data.ok_ichans[isub]
+                P, freqs = data.Ps[isub], data.freqs[isub]
+                weights, okc = data.weights[isub], data.ok_ichans[isub]
                 errs = np.where(weights > 0, data.noise_stds[isub, 0], 0.0)
-                # P quantized to 6 significant digits keys the cache, so
-                # spin-down drift does not fork the shared template; the
-                # mismatch is restored exactly in assembly
-                P_key = float(np.format_float_scientific(P, precision=5))
-                mkey = (freqs.tobytes(), P_key, float(DM0_arch))
-                entry = model_cache.get(mkey)
-                if entry is None:
-                    with annotate("pp:load.template"):
-                        entry = template_entry(data, freqs, P, DM0_arch)
-                    model_cache[mkey] = entry
                 freqsx = freqs[okc]
                 if nu_fits is not None:
                     nu_fit = float(np.atleast_1d(nu_fits)[0])
@@ -411,17 +247,16 @@ class GetTOAs:
                 else:
                     port = np.asarray(data.subints[isub, 0], np_dtype)
                     scale = None
-                prep = dict(isub=isub, P=P, freqs=freqs, weights=weights,
-                            port=port, scale=scale, errs=errs, okc=okc,
-                            entry=entry, nu_fit=nu_fit, DM_base=DM0_arch,
-                            init=init, sub_flags=sub_flags,
+                prep = dict(isub=isub, P=P, freqs=freqs, port=port,
+                            scale=scale, errs=errs, okc=okc, init=init,
+                            tmpl=templates.get(data, isub, DM0_arch),
+                            nu_fit=nu_fit, sub_flags=sub_flags,
                             batchable=batchable, raw_stats=data.raw_stats,
                             doppler=data.doppler_factors[isub])
                 if not batchable:
                     # fitted per archive from a brute FFTFIT phase start
                     prep["mean_prof"] = (port[okc] *
                                          weights[okc][:, None]).mean(0)
-                    prep["mean_model"] = entry["model"][okc].mean(0)
                 preps.append(prep)
             # the preps hold what the fits need: free the archive's sample
             # arrays (the int16 ports are views, kept until fitted)
@@ -445,7 +280,8 @@ class GetTOAs:
                 groups.setdefault(len(p["mean_prof"]), []).append(p)
             for group in groups.values():
                 mp = np.stack([p.pop("mean_prof") for p in group])
-                mm = np.stack([p.pop("mean_model") for p in group])
+                mm = np.stack([p["tmpl"].mean_profile(p["okc"])
+                               for p in group])
                 pg = fit_phase_shift_batch(
                     dev(mp), dev(mm), noise=dev(get_noise_PS(mp, chans=True)),
                     Ns=100)
@@ -462,10 +298,9 @@ class GetTOAs:
             groups = {}
             for p in plist:
                 groups.setdefault((p["port"].shape, p["sub_flags"],
-                                   p["entry"]["key"]), []).append((iarch, p))
-            for (shape, sub_flags, _), items in groups.items():
-                nh = len(items[0][1]["entry"]["mft"][0][0])
-                chunk = _auto_fit_chunk(shape[0], shape[1], nh,
+                                   p["tmpl"]), []).append((iarch, p))
+            for (shape, sub_flags, tmpl), items in groups.items():
+                chunk = _auto_fit_chunk(shape[0], shape[1], tmpl.mr.shape[1],
                                         np.dtype(np_dtype).itemsize,
                                         4 if f32 else 8, [self.device])
                 for i in range(0, len(items), chunk):
@@ -477,7 +312,7 @@ class GetTOAs:
             unfitted tau kept in the model when fit_scat."""
             with annotate("pp:toas.fit"):
                 t0 = time.time()
-                entry = items[0][1]["entry"]
+                tmpl = items[0][1]["tmpl"]
                 sharded = mesh is not None and batch
                 with annotate("pp:toas.to_card"):
                     x = torch.from_numpy(
@@ -497,15 +332,14 @@ class GetTOAs:
                         # a mesh takes the host operands: each shard's
                         # slabs go to their own devices
                         xd = x.to(self.device)
-                        mft = self._template_on(
-                            entry, [self.device])[self.device]
+                        mft = tmpl.on([self.device])[self.device]
                         ops = tuple(map(dev, ops))
                         nu_fits_b = dev(nu_fits_b)
                         if scales is not None:
                             scales = scales.to(self.device)
                 if sharded:
                     packed = fit_portrait_full_sharded(
-                        mesh, x, self._template_on(entry, mesh.device_list),
+                        mesh, x, tmpl.on(mesh.device_list),
                         *ops, nu_fits=nu_fits_b, fit_flags=flags,
                         log10_tau=log10_tau, scales=scales, dtype=self.dtype,
                         seed_phase=True, packed=True)
@@ -547,9 +381,9 @@ class GetTOAs:
             if not items:
                 return
             shape, x_itemsize = key[0], np.dtype(key[1]).itemsize
-            nh = len(items[0][1]["entry"]["mft"][0][0])
             chunk = _auto_fit_chunk(
-                shape[0], shape[1], nh, x_itemsize, 4 if f32 else 8,
+                shape[0], shape[1], key[2].mr.shape[1], x_itemsize,
+                4 if f32 else 8,
                 [self.device] if mesh is None else
                 [d for row in mesh.devices for d in row],
                 1 if mesh is None else mesh.shape["batch"])
@@ -591,8 +425,7 @@ class GetTOAs:
             jobs.append(job)
             for p in job["preps"]:
                 if p["batchable"]:
-                    key = (p["port"].shape, p["port"].dtype.str,
-                           p["entry"]["key"])
+                    key = (p["port"].shape, p["port"].dtype.str, p["tmpl"])
                     buffers.setdefault(key, []).append((iarch, p))
             for key in list(buffers):
                 flush(key)
@@ -601,7 +434,7 @@ class GetTOAs:
             flush(key, final=True)
         drain_assembly()
         timing["wall_s"] = time.time() - start_all
-        self.mharms = sorted({e["mharm"] or 0 for e in model_cache.values()})
+        self.mharms = templates.mharms
         if not quiet and self.TOA_list:
             med_err = np.median([t.TOA_error for t in self.TOA_list])
             print(f"\nFit {len(self.TOA_list)} TOAs in "
@@ -617,13 +450,11 @@ class GetTOAs:
         left out with a message, as a subint that cannot be fitted is."""
         t0 = time.time()
         df, data, DM0_arch = job["df"], job["data"], job["DM0_arch"]
-        nbin = data.nbin
         rec = {name: [] for name in self._PER_ARCHIVE}
         arch_duration = 0.0
         for prep in job["preps"]:
-            isub, P = prep["isub"], prep["P"]
-            freqsx = prep["freqs"][prep["okc"]]
-            entry = prep["entry"]
+            isub, P, okc = prep["isub"], prep["P"], prep["okc"]
+            freqsx = prep["freqs"][okc]
             res, duration = results[(iarch, isub)]
             arch_duration += duration
             fitted = (res.phi, res.DM, res.phi_err, res.DM_err)
@@ -633,15 +464,8 @@ class GetTOAs:
                       f"{float(res.phi_err)}, {float(res.DM_err)}; return "
                       f"code {int(res.return_code)})")
                 continue
-            # restore the base dispersion (host f64): the fit solved dDM
-            # around DM_base against the template rotated at P_model and
-            # anchored at nu_anchor
-            DM_base, P_model = prep["DM_base"], entry["P_model"]
-            base_shift = DCONST * DM_base / P_model * (
-                float(res.nu_DM) ** -2.0 - entry["nu_anchor"] ** -2.0)
-            phi = (float(res.phi) + base_shift + 0.5) % 1.0 - 0.5
+            phi, DM_fit = prep["tmpl"].restore(res.phi, res.DM, res.nu_DM, P)
             phi_err = float(res.phi_err)
-            DM_fit = DM_base * (P / P_model) + float(res.DM)
             GM_fit = float(res.GM)
             epoch = data.epochs[isub]
             toa_mjd = epoch.add_seconds((phi * P) + data.backend_delay)
@@ -655,19 +479,9 @@ class GetTOAs:
             scale_errs_np = np.asarray(res.scale_errs)
             # flux from the (scattered) model means x scales
             # (pptoas.py:554-576)
-            flux_model = entry["model"][prep["okc"]]
-            tau_fit = (10.0 ** float(res.tau) if self.log10_tau
-                       else float(res.tau))
-            if fit_scat and tau_fit != 0.0:
-                taus_x = scattering_times(tau_fit, float(res.alpha), freqsx,
-                                          float(res.nu_tau))
-                flux_model = np.fft.irfft(
-                    scattering_portrait_FT_np(taus_x, nbin) *
-                    np.fft.rfft(flux_model, axis=-1), n=nbin, axis=-1)
-            model_means = flux_model.mean(-1)
-            flux_vals = scales_np[prep["okc"]] * model_means
-            flux_errs_chan = np.abs(model_means) * \
-                scale_errs_np[prep["okc"]]
+            model_means = prep["tmpl"].chan_means[okc]
+            flux_vals = scales_np[okc] * model_means
+            flux_errs_chan = np.abs(model_means) * scale_errs_np[okc]
             good = flux_errs_chan > 0
             if good.any():
                 flux, flux_err = weighted_mean(flux_vals[good],
@@ -679,7 +493,7 @@ class GetTOAs:
             flags = dict(
                 be=data.backend, fe=data.frontend,
                 f=f"{data.frontend}_{data.backend}",
-                nbin=nbin, nch=data.nchan, nchx=len(prep["okc"]),
+                nbin=data.nbin, nch=data.nchan, nchx=len(okc),
                 bw=float(freqsx.max() - freqsx.min()),
                 chbw=float(abs(data.bw) / data.nchan),
                 subint=int(isub), tobs=float(data.subtimes[isub]),
@@ -692,11 +506,12 @@ class GetTOAs:
                     np.asarray(res.covariance_matrix)[0, 1])
             flags["gof"] = float(res.red_chi2)
             if fit_GM:
-                flags["gm"] = GM_bary
-                flags["gm_err"] = float(res.GM_err)
+                flags.update(gm=GM_bary, gm_err=float(res.GM_err))
             if fit_scat:
                 # topocentric -> barycentric via the Doppler factor
                 # (pptoas.py:615-627)
+                tau_fit = (10.0 ** float(res.tau) if self.log10_tau
+                           else float(res.tau))
                 flags["scat_time"] = float(tau_fit * P / df_dop * 1e6)  # us
                 if self.log10_tau:
                     flags["log10_scat_time"] = float(
@@ -710,12 +525,10 @@ class GetTOAs:
                 if not fix_alpha:
                     flags["scat_ind_err"] = float(res.alpha_err)
             if print_phase:
-                flags["phs"] = phi
-                flags["phs_err"] = phi_err
+                flags.update(phs=phi, phs_err=phi_err)
             if print_flux:
-                flags["flux"] = float(flux)
-                flags["flux_err"] = float(flux_err)
-                flags["flux_ref_freq"] = float(flux_freq)
+                flags.update(flux=float(flux), flux_err=float(flux_err),
+                             flux_ref_freq=float(flux_freq))
             if print_parangle:
                 pa = _parallactic_angle_for(data, epoch)
                 if pa == pa:  # not NaN
@@ -727,30 +540,24 @@ class GetTOAs:
                 data.telescope_code, DM=DM_bary if fit_DM else None,
                 DM_error=float(res.DM_err) if fit_DM else None,
                 flags=flags))
-            for name, val in (
-                    ("ok_isubs", isub), ("epochs", epoch),
-                    ("MJDs", epoch.in_days()), ("Ps", P), ("phis", phi),
-                    ("phi_errs", phi_err), ("TOAs", toa_mjd),
-                    ("TOA_errs", toa_err_us), ("DMs", DM_bary),
-                    ("DM_errs", float(res.DM_err)), ("GMs", GM_bary),
-                    ("GM_errs", float(res.GM_err)),
-                    ("taus", float(res.tau)), ("tau_errs", float(res.tau_err)),
-                    ("alphas", float(res.alpha)),
-                    ("alpha_errs", float(res.alpha_err)),
-                    ("scales", scales_np),
-                    ("scale_errs", scale_errs_np),
-                    ("snrs", float(res.snr)),
-                    ("channel_snrs", np.asarray(res.channel_snrs)),
-                    ("fit_channel_red_chi2s",
-                     np.asarray(res.channel_red_chi2)),
-                    ("fluxes", flux), ("flux_errs", flux_err),
-                    ("red_chi2s", float(res.red_chi2)),
-                    ("covariances", np.asarray(res.covariance_matrix)),
-                    ("nfevals", int(res.nfeval)),
-                    ("rcs", int(res.return_code)),
-                    ("nu_fits", np.array([prep["nu_fit"]] * 3)),
-                    ("nu_refs", (float(res.nu_DM), float(res.nu_GM),
-                                 float(res.nu_tau)))):
+            row = dict(
+                ok_isubs=isub, epochs=epoch, MJDs=epoch.in_days(), Ps=P,
+                phis=phi, phi_errs=phi_err, TOAs=toa_mjd, TOA_errs=toa_err_us,
+                DMs=DM_bary, DM_errs=float(res.DM_err), GMs=GM_bary,
+                GM_errs=float(res.GM_err), taus=float(res.tau),
+                tau_errs=float(res.tau_err), alphas=float(res.alpha),
+                alpha_errs=float(res.alpha_err), scales=scales_np,
+                scale_errs=scale_errs_np, snrs=float(res.snr),
+                channel_snrs=np.asarray(res.channel_snrs),
+                fit_channel_red_chi2s=np.asarray(res.channel_red_chi2),
+                fluxes=flux, flux_errs=flux_err,
+                red_chi2s=float(res.red_chi2),
+                covariances=np.asarray(res.covariance_matrix),
+                nfevals=int(res.nfeval), rcs=int(res.return_code),
+                nu_fits=np.array([prep["nu_fit"]] * 3),
+                nu_refs=(float(res.nu_DM), float(res.nu_GM),
+                         float(res.nu_tau)))
+            for name, val in row.items():
                 rec[name].append(val)
         # per-archive weighted-mean DeltaDM (pptoas.py:665-682)
         DMs_arr = np.asarray(rec["DMs"])
@@ -795,8 +602,7 @@ class GetTOAs:
         ii = list(self.ok_isubs[iarch]).index(isub)
         data = load_data(datafile, dedisperse=False, dededisperse=True,
                          pscrunch=True, rm_baseline=True, quiet=True)
-        P = data.Ps[isub]
-        freqs = data.freqs[isub]
+        P, freqs = data.Ps[isub], data.freqs[isub]
         port = np.array(data.subints[isub, 0], dtype=np.float64)
         model = self.model_source.eval(data.phases, freqs, P)
         # stored DMs are barycentric when get_TOAs ran with bary
@@ -895,29 +701,20 @@ class GetTOAs:
             self.channel_red_chi2s.append(arch_rchi2s)
         return self.zap_channels
 
-    def _load_dispersed(self, df, tscrunch, quiet):
-        """An archive in its dispersed state, as per-channel TOAs need it
+    def _load_dispersed(self, df, tscrunch, quiet, stats_device=None):
+        """An archive in its dispersed state, as the TOA fits take it
         (pptoas.py:812-826); None, with a message, when it cannot load."""
         try:
             return load_data(df, dedisperse=False, dededisperse=True,
                              tscrunch=tscrunch, pscrunch=True,
-                             rm_baseline=True, quiet=quiet)
+                             rm_baseline=True, quiet=quiet,
+                             stats_device=stats_device)
         except (OSError, ValueError, KeyError, EOFError) as exc:
             print(f"Skipping {df}: could not load ({exc})")
             return None
 
-    def _template_on(self, entry, devices):
-        """A cached template's spectrum {device: (mr, mi)} on each of
-        `devices`, uploaded once per device."""
-        for d in devices:
-            if d not in entry["dev"]:
-                entry["dev"][d] = tuple(
-                    torch.as_tensor(np.asarray(a), dtype=self.dtype, device=d)
-                    for a in entry["mft"])
-        return {d: entry["dev"][d] for d in devices}
-
-    def _dev(self, a, dtype=None):
-        return torch.as_tensor(np.asarray(a), dtype=dtype or self.dtype,
+    def _dev(self, a):
+        return torch.as_tensor(np.asarray(a), dtype=self.dtype,
                                device=self.device)
 
     def get_narrowband_TOAs(self, datafile=None, tscrunch=False,
@@ -954,8 +751,7 @@ class GetTOAs:
                 continue
             nbin = data.nbin
             for isub in data.ok_isubs:
-                P = data.Ps[isub]
-                freqs = data.freqs[isub]
+                P, freqs = data.Ps[isub], data.freqs[isub]
                 okc = data.ok_ichans[isub]
                 if not len(okc):
                     continue
@@ -976,7 +772,7 @@ class GetTOAs:
                     init[:, 4] = sg[2]
                     init = self._dev(init)
                     init[:, 0] = res.phase
-                    mr, mi, _ = _fit_spectrum(model, nbin, f32)
+                    mr, mi, _ = fit_spectrum(model, nbin, f32)
                     nu = self._dev(freqs[okc])
                     bres = fit_portrait_full_batch(
                         x[:, None, :],
@@ -1065,8 +861,7 @@ class GetTOAs:
                 continue
             lines = []
             for isub in data.ok_isubs:
-                P = data.Ps[isub]
-                freqs = data.freqs[isub]
+                P, freqs = data.Ps[isub], data.freqs[isub]
                 okc = data.ok_ichans[isub]
                 if not len(okc):
                     continue

@@ -21,8 +21,8 @@ from pulseportraiture_tpu.pipelines.toas import \
 from pulseportraiture_tpu_torch.models import gaussian as tg  # noqa: E402
 from pulseportraiture_tpu_torch.models import gmodel_io as tio  # noqa: E402
 from pulseportraiture_tpu_torch.ops import gaussian as tog  # noqa: E402
-from pulseportraiture_tpu_torch.pipelines.toas import \
-    _ModelSource  # noqa: E402
+from pulseportraiture_tpu_torch.pipelines.template import \
+    ModelSource  # noqa: E402
 
 NCHAN, NBIN, P = 32, 256, 0.003
 FREQS = np.linspace(1100.0, 1900.0, NCHAN)
@@ -77,7 +77,7 @@ def test_model_source_matches_jax(gmodel, unscat):
     """The pipelines' template evaluation, with the model's own
     scattering applied and with it zeroed (what fit_scat asks for)."""
     want = JModelSource(gmodel).eval(PHASES, FREQS, P, unscat=unscat)
-    src = _ModelSource(gmodel)
+    src = ModelSource(gmodel)
     got = src.eval(PHASES, FREQS, P, unscat=unscat)
     assert src.kind == "gauss"
     assert peak_err(got, want) <= 1e-10

@@ -32,6 +32,7 @@ from pulseportraiture_tpu.pipelines.toas import \
     GetTOAs as JGetTOAs  # noqa: E402
 from pulseportraiture_tpu.sim.fake import make_fake_pulsar  # noqa: E402
 from pulseportraiture_tpu.utils import get_bin_centers  # noqa: E402
+from pulseportraiture_tpu_torch.pipelines import template  # noqa: E402
 from pulseportraiture_tpu_torch.pipelines import toas  # noqa: E402
 
 from torch_parity_utils import mjd_diff_s  # noqa: E402
@@ -136,14 +137,14 @@ def test_port_toas_match_jax_at_768_bins(ws768, monkeypatch):
     from pulseportraiture_tpu.ops.ct_dft import band_cap_model_ft
 
     seen = []
-    orig = toas._fit_spectrum
+    orig = template.fit_spectrum
 
     def spy(model_rot, nbin, f32):
         out = orig(model_rot, nbin, f32)
         mf = np.fft.rfft(np.asarray(model_rot, np.float64), axis=-1)
         seen.append((out[2], band_cap_model_ft(mf.real, mf.imag, nbin)[2]))
         return out
-    monkeypatch.setattr(toas, "_fit_spectrum", spy)
+    monkeypatch.setattr(template, "fit_spectrum", spy)
     g32 = toas.GetTOAs(ws768["files"], ws768["fits"], device="cpu",
                        dtype=torch.float32, quiet=True)
     g32.get_TOAs(quiet=True)
